@@ -4,29 +4,49 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. the card: name and power limit as nvidia-smi reports them;
-2. build the four CUDA kernels from `curdleproofs_tpu_torch/csrc/`, then
+2. build the six CUDA kernels from `curdleproofs_tpu_torch/csrc/`, then
    hold each against its plain PyTorch version on the card (array
-   equality), timed with CUDA events: at the 626k MSM's own shapes (the
-   fold on its plan, the merge's g1_add over its slots, the suffix kernel,
-   fq_mul at leave-Montgomery's [24, W]), and fq_mul and g1_add at 2^16;
+   equality), timed with CUDA events: at the 626k MSM's own shapes (both
+   folds on its plan, the merge's g1_add over its slots, the suffix kernel,
+   fq_mul at leave-Montgomery's [24, W], g1_sqrt over its 655,360 padded
+   bases), and fq_mul and g1_add at 2^16; the 626k bases made resident
+   compressed (x + parity, y from g1_sqrt) and uncompressed must be
+   bit-identical, with each upload's wall time and bytes (after one untimed
+   warm-up upload, three timed uploads each way, in turns);
 3. the MSM at real size: `msm_device` at n = 2^16 (c = 8) and n = 626,000
    (c = 16, batch verification's deduped MSM at B = 1024, l = 252), each
-   equal to the native host MSM, with per-stage device times and peak memory;
+   equal to the native host MSM, with per-stage device times and peak
+   memory; then the 2^16 MSM again with the full-add fold
+   (`madd=False`, the path of g1_fold_packed);
 4. the protocol on `TorchBackend()`: the Whisk shuffle proof at l = 124 from
    `StdRng.seed_from_u64(0)` must equal the golden 4496-byte vector, verify,
-   and fail with a tampered post-tracker; then prove and verify at l = 252.
+   and fail with a tampered post-tracker; then prove and verify at l = 252;
+5. Whisk chain sync: 64 consecutive l = 124 shuffle blocks (made on the
+   host backend) through `is_valid_whisk_shuffle_proofs` on the card:
+   accepted; with one corrupted proof byte rejected, and `identify=True`
+   names exactly that block;
+6. batch verification at l = 252, B = 256 (shared R, S; fresh T, U, M per
+   proof, as bench.py builds it): `batch_verify(..., stream_chunk=64)`
+   through the device stream accepts it and rejects one swapped instance,
+   and the one-MSM `batch_verify` gives the same verdicts.  No tuning
+   table is shipped for the card, so the streamed run measures the untuned
+   50/50 split between the device stream and the host engine.
 
 Kernel launches are counted for each driven path on its own (zeroed just
-before it, read just after it): the MSM at 2^16, the MSM at 626k, and the
-main path, the protocol run of phase 4 (l = 124 and l = 252 together).
-Every kernel must have launched in each.  The kernels' JSON record, on the
-line before the last, carries the main path's counts under `launches` and
-every path's under `launches_by_path`; the last line is the device record.
+before it, read just after it): the MSMs at 2^16 and 626k, the full-add
+MSM, the protocol run of phase 4 (l = 124 and l = 252 together), the Whisk
+chain and the batch verification.  Each path must launch every kernel
+`EXPECTED` lists for it.  The kernels' JSON record, on the line before the
+last, carries each kernel's counts on its own main path under `launches`
+(the protocol run; for g1_fold_packed the full-add MSM; named in
+`launches_path`) and every path's under `launches_by_path`; the last line
+is the device record.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import pathlib
 import random
 import subprocess
@@ -41,15 +61,35 @@ GOLDEN = ROOT / "tests" / "golden" / "whisk_shuffle_proof_128.hex"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 IMAD_PER_CLK_PER_SM = 64    # 32-bit integer multiply-add, compute capability 9.0
 MUL32_PER_FQ_MUL = 600      # 300 32x32->64 products (CIOS, 12 limbs), 2 each
+MUL32_PER_FQ_SQR = 468      # 78 + 12 + 144 products (squaring, then reduction)
 N_SMALL = 1 << 16           # the c = 8 MSM family, and the kernels' width
 N_BIG = 626_000             # deduped batch-verify MSM at B = 1024, l = 252
 TILE = 4096                 # random bases, tiled to the MSM sizes
+CHAIN_BLOCKS = 64           # phase 5: Whisk blocks in the synced chain
+BATCH_ELL, BATCH_B, BATCH_CHUNK = 252, 256, 64   # phase 6
 MAIN_PATH = "protocol l=124 + l=252"
+FULL_ADD_PATH = f"msm n={N_SMALL} full-add"
+CHAIN_PATH = f"whisk chain {CHAIN_BLOCKS} x l=124"
+BATCH_PATH = f"batch verify l={BATCH_ELL} B={BATCH_B}"
 REPLACES = {
     "fq_mul": "curdleproofs_tpu/ops/pallas_kernels.py:268",
     "g1_add": "curdleproofs_tpu/ops/pallas_kernels.py:282",
     "g1_fold_madd": "curdleproofs_tpu/ops/pallas_kernels.py:446",
     "g1_suffix_weighted": "curdleproofs_tpu/ops/pallas_kernels.py:505",
+    "g1_fold_packed": "curdleproofs_tpu/ops/pallas_kernels.py:439",
+    "g1_sqrt": "curdleproofs_tpu/ops/pallas_kernels.py:201",
+}
+_MSM = {"fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted"}
+# the kernels each driven path must launch: g1_sqrt wherever the counted
+# window uploads fresh bases (the direct MSMs' bases are resident before
+# their windows open)
+EXPECTED = {
+    f"msm n={N_SMALL}": _MSM,
+    f"msm n={N_BIG}": _MSM,
+    FULL_ADD_PATH: _MSM - {"g1_fold_madd"} | {"g1_fold_packed"},
+    MAIN_PATH: _MSM | {"g1_sqrt"},
+    CHAIN_PATH: _MSM | {"g1_sqrt"},
+    BATCH_PATH: _MSM | {"g1_sqrt"},
 }
 
 
@@ -72,6 +112,20 @@ def max_sm_clock_hz() -> float:
     return float(out.strip().splitlines()[0]) * 1e6
 
 
+def sqrt_mul32(digits) -> int:
+    """32-bit multiplies one point needs for (x^3 + b)^e, e given as the
+    MSB-first 2-bit `digits`: x^2 and u^2 squared, x^3 and u^3 multiplied,
+    then, after the first nonzero digit (which only loads u^d), two
+    squarings a digit and one multiply a nonzero digit.  The kernel also
+    squares Montgomery one and multiplies by it on zero digits, to stay
+    branch-free; the bound does not count that work."""
+    first = next(j for j, d in enumerate(digits) if d)
+    rest = digits[first + 1:]
+    squarings = 2 + 2 * len(rest)
+    products = 2 + sum(1 for d in rest if d)
+    return squarings * MUL32_PER_FQ_SQR + products * MUL32_PER_FQ_MUL
+
+
 def event_ms(fn, reps: int):
     """(result of the first run, mean device time of `fn` over `reps` runs;
     with reps > 1 the first run is a warm-up and is not timed)."""
@@ -92,6 +146,12 @@ def event_ms(fn, reps: int):
 def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) for g, w in
                zip(got, want))
+
+
+def stage_ms(marks) -> dict:
+    """[(stage, event), ...] -> {stage: ms since the previous mark}."""
+    return {s: round(marks[i - 1][1].elapsed_time(e), 3)
+            for i, (s, e) in enumerate(marks) if i}
 
 
 def main() -> int:
@@ -118,9 +178,14 @@ def main() -> int:
     from curdleproofs_tpu_torch.ops.backend import TorchBackend
     from curdleproofs_tpu_torch.ops.field import FQ
     from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ, points_to_device
-    from curdleproofs_tpu_torch.util import shuffle_permute_and_commit_input
+    from curdleproofs_tpu_torch.parallel import batch_verify as bv
+    from curdleproofs_tpu_torch.util import (
+        generate_blinders, get_permutation, msm,
+        shuffle_permute_and_commit_input,
+    )
     from curdleproofs_tpu_torch.whisk import (
         WhiskTracker, generate_whisk_shuffle_proof, is_valid_whisk_shuffle_proof,
+        is_valid_whisk_shuffle_proofs,
     )
 
     # -- phase 2: build, then every kernel against its plain version -------
@@ -178,16 +243,57 @@ def main() -> int:
             f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
         return got
 
-    # The 626k MSM's own shapes (the device's real load): the fold on its
-    # plan, the merge's first g1_add over all its slots, the suffix kernel
-    # at its WG = 16 x 2048, Cb = 16, and fq_mul at its leave-Montgomery
-    # [24, W] x [24, 1].
+    # The 626k bases made resident both ways: one untimed warm-up upload
+    # (the process's first loads the kernels and warms the allocator), then
+    # three timed each way in turns; bit-identical layouts, each upload's
+    # wall and bytes, and the host export's share of it.
     big_pts = tiled(N_BIG)
     big_ss = [rnd.randrange(R) for _ in range(N_BIG)]
-    t0 = time.perf_counter()
-    big_bases = md.DeviceBases(big_pts, dev)
+    n_pad = md.pad_n(N_BIG)
+    sent = {"1": 4 * (12 + 1) * n_pad, "0": 4 * (12 + 12 + 1) * n_pad}
+    walls = {"1": [], "0": []}
+    layouts = {}
     torch.cuda.synchronize()
-    log(f"bases n={N_BIG}: resident in {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    md.DeviceBases(big_pts, dev)
+    torch.cuda.synchronize()
+    warmup_ms = (time.perf_counter() - t0) * 1e3
+    for flag in ("1", "0", "0", "1", "1", "0"):
+        os.environ["CURDLEPROOFS_COMPRESS"] = flag
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        layouts[flag] = md.DeviceBases(big_pts, dev)
+        torch.cuda.synchronize()
+        walls[flag].append((time.perf_counter() - t0) * 1e3)
+    del os.environ["CURDLEPROOFS_COMPRESS"]
+    big_bases = layouts.pop("1")
+    unc = layouts.pop("0")
+    for a, b, what in zip((big_bases.ext_px, big_bases.ext_py,
+                           big_bases.ext_zb), (unc.ext_px, unc.ext_py,
+                                               unc.ext_zb),
+                          ("ext_px", "ext_py", "ext_zb")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"compressed and uncompressed residency "
+                                 f"differ in {what}")
+    del unc
+    t0 = time.perf_counter()
+    px, _ = native.export_mont_x(big_pts, n_pad)
+    export_c = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    native.export_mont_affine(big_pts, n_pad)
+    export_u = (time.perf_counter() - t0) * 1e3
+    ingest = {"points": N_BIG, "padded": n_pad, "warmup_ms": warmup_ms,
+              "compressed": {"wall_ms": walls["1"], "bytes": sent["1"],
+                             "host_export_ms": export_c},
+              "uncompressed": {"wall_ms": walls["0"], "bytes": sent["0"],
+                               "host_export_ms": export_u}}
+    log(f"bases n={N_BIG}: compressed and uncompressed residency "
+        f"bit-identical; upload " + json.dumps(ingest))
+
+    # The 626k MSM's own shapes (the device's real load): both folds on its
+    # plan, the merge's first g1_add over all its slots, the suffix kernel
+    # at its WG = 16 x 2048, Cb = 16, fq_mul at its leave-Montgomery
+    # [24, W] x [24, 1], and g1_sqrt over its padded bases' x.
     params = md.pick_params(N_BIG)
     limbs = torch.from_numpy(
         md._scalars_to_limbs(big_ss, params.n).astype(np.int32)).to(dev)
@@ -198,12 +304,18 @@ def main() -> int:
     live_rows = int((big_bases.ext_zb[sp.plan.long()] != 0).sum())
     e_cnt, (t_rows, s_pad) = ext[0].shape[1], sp.plan.shape
     log(f"fold family: {params}, live rows {live_rows}")
+    fold_bytes = (2 * 48 + 4) * e_cnt + 4 * t_rows * s_pad + 3 * 96 * s_pad
     acc = PointsXYZ(*check(
         "g1_fold_madd", f"plan [{t_rows}, {s_pad}] over {e_cnt} bases",
         lambda: K.g1_fold_madd(*ext, sp.plan),
         lambda: K.g1_fold_madd_plain(*ext, sp.plan), 3,
-        (2 * 48 + 4) * e_cnt + 4 * t_rows * s_pad + 3 * 96 * s_pad,
-        live_rows * 11 * MUL32_PER_FQ_MUL))
+        fold_bytes, live_rows * 11 * MUL32_PER_FQ_MUL))
+    # the full-add fold computes every row, dead ones too; its bound counts
+    # the live rows' adds, the least work that gives the same sums
+    check("g1_fold_packed", f"plan [{t_rows}, {s_pad}] over {e_cnt} bases",
+          lambda: K.g1_fold_packed(*ext, sp.plan),
+          lambda: K.g1_fold_packed_plain(*ext, sp.plan), 3,
+          fold_bytes, live_rows * 12 * MUL32_PER_FQ_MUL)
 
     partner = torch.clamp(torch.arange(s_pad, device=dev) + 1, max=s_pad - 1)
     nxt = md._take(acc, partner)
@@ -228,6 +340,11 @@ def main() -> int:
           lambda: (K.fq_mul_plain(wx, one_plain),),
           50, 2 * 96 * w + 96, w * MUL32_PER_FQ_MUL)
 
+    pxp = md.u32_to_tensor(px, dev)
+    check("g1_sqrt", f"n = {n_pad} (x of the 626k MSM's padded bases)",
+          lambda: (K.g1_sqrt(pxp),), lambda: (K.g1_sqrt_plain(pxp),), 3,
+          (48 + 96) * n_pad, n_pad * sqrt_mul32(K.SQRT_DIGITS))
+
     # fq_mul and g1_add also at N = 2^16 lanes
     n16 = N_SMALL
     a = points_to_device(tiled(n16), dev)
@@ -239,28 +356,33 @@ def main() -> int:
     check("g1_add", f"N = {n16}", lambda: K.g1_add(pp, b),
           lambda: K.g1_add_plain(pp, b),
           20, 9 * 96 * n16, n16 * 12 * MUL32_PER_FQ_MUL)
-    del pp, a, b, dense, sp, limbs, acc, nxt, wx
+    del pp, a, b, dense, sp, limbs, acc, nxt, wx, pxp, px
 
-    # -- phases 3 and 4: each path counted on its own -------------------------
+    # -- phases 3 to 6: each path counted on its own ------------------------
     by_path = {}
 
     def counted(path):
         """Launch counts of one driven path: zeroed just before it, read
-        just after it; every kernel must have launched in it."""
+        just after it; every kernel `EXPECTED[path]` names must have
+        launched in it."""
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
         log(f"kernel launches, {path}: {json.dumps(launches)}")
-        missing = [k for k, v in launches.items() if v == 0]
+        missing = sorted(k for k in EXPECTED[path] if launches[k] == 0)
         if missing:
             raise AssertionError(f"kernels never launched on {path}: "
                                  f"{missing}")
         by_path[path] = launches
 
     host = HostBackend()
-    for n, ss, bases in ((n16, [rnd.randrange(R) for _ in range(n16)],
-                          md.DeviceBases(tiled(n16, 3), dev)),
-                         (N_BIG, big_ss, big_bases)):
-        pts = tiled(n, 3) if n == n16 else big_pts
+    small_pts = tiled(n16, 3)
+    small_ss = [rnd.randrange(R) for _ in range(n16)]
+    small_bases = md.DeviceBases(small_pts, dev)
+    for path, pts, ss, bases, madd in (
+            (f"msm n={n16}", small_pts, small_ss, small_bases, True),
+            (f"msm n={N_BIG}", big_pts, big_ss, big_bases, True),
+            (FULL_ADD_PATH, small_pts, small_ss, small_bases, False)):
+        n = len(pts)
         marks = []
 
         def mark(stage):
@@ -273,23 +395,22 @@ def main() -> int:
         K.reset_launches()
         t0 = time.perf_counter()
         mark("start")
-        got = md.msm_device(bases, ss, mark=mark)
+        got = md.msm_device(bases, ss, mark=mark, madd=madd)
         wall = (time.perf_counter() - t0) * 1e3
-        counted(f"msm n={n}")
-        stages = {s: marks[i - 1][1].elapsed_time(e)
-                  for i, (s, e) in enumerate(marks) if i}
+        counted(path)
+        if not madd and by_path[path]["g1_fold_madd"]:
+            raise AssertionError("madd=False still ran the madd fold")
         peak = torch.cuda.max_memory_allocated() / 2**30
         t0 = time.perf_counter()
         want = host.msm(pts, ss)
         host_ms = (time.perf_counter() - t0) * 1e3
         if got != want:
-            raise AssertionError(f"msm_device n={n} differs from the host MSM")
+            raise AssertionError(f"{path} differs from the host MSM")
         p = md.pick_params(n)
-        log(f"msm n={n} c={p.c} T={p.t_rows} s_pad={p.s_pad}: equal to host; "
+        log(f"{path} c={p.c} T={p.t_rows} s_pad={p.s_pad}: equal to host; "
             f"wall {wall:.1f} ms (host native {host_ms:.1f} ms), peak "
-            f"{peak:.2f} GiB, stages ms "
-            + json.dumps({k: round(v, 3) for k, v in stages.items()}))
-    del big_bases
+            f"{peak:.2f} GiB, stages ms " + json.dumps(stage_ms(marks)))
+    del big_bases, small_bases
 
     golden = GOLDEN.read_text().strip()
     backend = TorchBackend()
@@ -337,8 +458,120 @@ def main() -> int:
     log(f"msm engines on {MAIN_PATH}: {json.dumps(backend.engine_counts)}")
     if backend.engine_counts["device"] == 0:
         raise AssertionError("no MSM reached the device")
+
+    # -- phase 5: Whisk chain sync -------------------------------------------
+    rng = StdRng.seed_from_u64(64)
+    crs = CurdleproofsCrs.generate_crs(WHISK_ELL)
+    trackers = [WhiskTracker.from_rand(rng) for _ in range(WHISK_ELL)]
+    shuffles = []
+    t0 = time.perf_counter()
+    with use_backend(HostBackend()):
+        for _ in range(CHAIN_BLOCKS):
+            post, proof = generate_whisk_shuffle_proof(rng, crs, trackers)
+            shuffles.append((trackers, post, proof))
+            trackers = post
+    gen_s = time.perf_counter() - t0
+    bad_block = 37
+    pre, post, proof = shuffles[bad_block]
+    bad = bytearray(proof)
+    bad[-32] ^= 1                 # the low byte of the proof's last scalar
+    tampered = shuffles[:bad_block] + [(pre, post, bytes(bad))] \
+        + shuffles[bad_block + 1:]
+    chain_backend = TorchBackend()
+    with use_backend(chain_backend):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ok = is_valid_whisk_shuffle_proofs(rng, crs, shuffles)
+        accept_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        rejected = not is_valid_whisk_shuffle_proofs(rng, crs, tampered)
+        reject_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        verdicts = is_valid_whisk_shuffle_proofs(rng, crs, tampered,
+                                                 identify=True)
+        identify_ms = (time.perf_counter() - t0) * 1e3
+        counted(CHAIN_PATH)
+    named = [i for i, v in enumerate(verdicts) if not v] \
+        if isinstance(verdicts, list) else verdicts
+    if not ok or not rejected or named != [bad_block]:
+        raise AssertionError(f"whisk chain: accepted {ok}, tamper rejected "
+                             f"{rejected}, identify named {named}")
+    log(f"{CHAIN_PATH}: accepted in {accept_ms:.1f} ms, block {bad_block} "
+        f"corrupted: rejected in {reject_ms:.1f} ms, identify named "
+        f"{named} in {identify_ms:.1f} ms; blocks made on the host in "
+        f"{gen_s:.1f} s; msm engines "
+        + json.dumps(chain_backend.engine_counts))
+
+    # -- phase 6: batch verification, streamed and one-MSM -------------------
+    ell, n_b = BATCH_ELL, BATCH_B
+    rng = StdRng.seed_from_u64(256)
+    crs = generate_crs(ell)
+    vec_r = [rng.rand_g1() for _ in range(ell)]
+    vec_s = [rng.rand_g1() for _ in range(ell)]
+    instances, proofs = [], []
+    t0 = time.perf_counter()
+    with use_backend(HostBackend()) as hb:
+        for _ in range(n_b):
+            p_i = list(range(ell))
+            rng.shuffle(p_i)
+            k_i = rng.rand_fr()
+            t_i = get_permutation(hb.batch_mul(vec_r, k_i), p_i)
+            u_i = get_permutation(hb.batch_mul(vec_s, k_i), p_i)
+            sigma_i = get_permutation(list(range(ell)), p_i)
+            rb_i = generate_blinders(rng, 4)
+            m_i = msm(crs.vec_G, sigma_i).add(msm(crs.vec_H, rb_i))
+            instances.append(bv.ShuffleInstance(vec_r, vec_s, t_i, u_i, m_i))
+            proofs.append(CurdleproofsProof.new(crs, vec_r, vec_s, t_i, u_i,
+                                                m_i, p_i, k_i, rb_i, rng))
+    gen_s = time.perf_counter() - t0
+    swap = instances[n_b // 2]
+    tampered = instances[:n_b // 2] + [bv.ShuffleInstance(
+        swap.vec_S, swap.vec_R, swap.vec_T, swap.vec_U, swap.M)] \
+        + instances[n_b // 2 + 1:]
+    marks = []
+
+    def mark(stage):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks.append((stage, ev))
+
+    batch_backend = TorchBackend()
+    with use_backend(batch_backend):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ok_s = bv.batch_verify(crs, instances, proofs, rng,
+                               stream_chunk=BATCH_CHUNK, mark=mark)
+        stream_ms = (time.perf_counter() - t0) * 1e3
+        stats = dict(bv._batch_verify_streamed.last_stats)
+        bad_s = bv.batch_verify(crs, tampered, proofs, rng,
+                                stream_chunk=BATCH_CHUNK)
+        t0 = time.perf_counter()
+        ok_1 = bv.batch_verify(crs, instances, proofs, rng)
+        one_ms = (time.perf_counter() - t0) * 1e3
+        bad_1 = bv.batch_verify(crs, tampered, proofs, rng)
+        counted(BATCH_PATH)
+    if (ok_s, bad_s, ok_1, bad_1) != (True, False, True, False):
+        raise AssertionError(f"batch verify verdicts: streamed {ok_s}/"
+                             f"{bad_s}, one-MSM {ok_1}/{bad_1} (valid/"
+                             f"tampered)")
+    starts = [i for i, (s, _) in enumerate(marks) if s == "start"] \
+        + [len(marks)]
+    dispatches = [stage_ms(marks[a:b]) for a, b in zip(starts, starts[1:])]
+    log(f"{BATCH_PATH}: streamed (chunk {BATCH_CHUNK}) accepted in "
+        f"{stream_ms:.1f} ms, replay {stats['replay_s'] * 1e3:.1f} ms, split "
+        f"{bv._batch_verify_streamed.last_split}, stats {json.dumps(stats)}, "
+        f"tamper rejected; one-MSM accepted in {one_ms:.1f} ms, tamper "
+        f"rejected; proofs made on the host in {gen_s:.1f} s; msm engines "
+        + json.dumps(batch_backend.engine_counts))
+    for i, st in enumerate(dispatches):
+        log(f"  stream dispatch {i}: stages ms {json.dumps(st)}")
+
     for name, rec in records.items():
-        rec["launches"] = by_path[MAIN_PATH][name]
+        path = FULL_ADD_PATH if name == "g1_fold_packed" else MAIN_PATH
+        rec["launches"] = by_path[path][name]
+        rec["launches_path"] = path
         rec["launches_by_path"] = {p: v[name] for p, v in by_path.items()}
 
     print(json.dumps({"kernels": [records[k] for k in K.KERNELS]}))

@@ -6,6 +6,8 @@ Kernels (sources in `../csrc/`, one shared object each):
 - `g1_add`             complete projective add             (g1_add.cu)
 - `g1_fold_madd`       Pippenger bucket fold, mixed adds   (g1_fold_madd.cu)
 - `g1_suffix_weighted` bucket-reduction inner step         (g1_suffix_weighted.cu)
+- `g1_fold_packed`     Pippenger bucket fold, full adds    (g1_fold_packed.cu)
+- `g1_sqrt`            y from x, compressed base ingest    (g1_sqrt.cu)
 
 Each wrapper takes the reference layouts as int32 tensors (16-bit limbs
 `[24, ...]`, packed limb pairs `[12, ...]`; the kernels read them as
@@ -14,7 +16,8 @@ tensor it launches the kernel, or raises.  `LAUNCHES` counts kernel launches
 per wrapper, so a run can show its main path went through the kernels.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into `../_build/cuda/`
-at first use, one process per source, all started together (`build()`).
+at first use, one process per source, all started together (`build()`),
+with the generated `sqrt_constants.h` (from `constants.py`) beside them.
 Every C entry returns `cudaGetLastError()`, and the wrapper raises on non-0.
 """
 
@@ -27,20 +30,26 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 import torch
 
-from .field import FQ, mul_rows, unpack_pairs
+from ..constants import CURVE_B, Q
+from .field import FQ, limb_col, mul_rows, unpack_pairs
 from .g1_ops import PointsXYZ, g1_add64, g1_infinity64, g1_madd64
 from .limbs import FQ_LIMBS as L
 
-__all__ = ["KERNELS", "LAUNCHES", "build", "reset_launches",
+__all__ = ["KERNELS", "LAUNCHES", "SQRT_DIGITS", "build", "reset_launches",
            "fq_mul", "fq_mul_plain", "g1_add", "g1_add_plain",
            "g1_fold_madd", "g1_fold_madd_plain",
-           "g1_suffix_weighted", "g1_suffix_weighted_plain"]
+           "g1_fold_packed", "g1_fold_packed_plain",
+           "g1_suffix_weighted", "g1_suffix_weighted_plain",
+           "g1_sqrt", "g1_sqrt_plain"]
 
-KERNELS = ("fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted")
+KERNELS = ("fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted",
+           "g1_fold_packed", "g1_sqrt")
 LAUNCHES = {k: 0 for k in KERNELS}
+_LAUNCHES_LOCK = threading.Lock()  # a stream's worker thread launches too
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = CSRC.parent / "_build" / "cuda"
@@ -54,12 +63,26 @@ _ARGTYPES = {
     "g1_add": [_P] * 9 + [_I64, _P],
     "g1_fold_madd": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64, _P, _P, _P, _P],
     "g1_suffix_weighted": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
+    "g1_fold_packed": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64, _P, _P, _P, _P],
+    "g1_sqrt": [_P, _I64, _P, _P],
 }
 
 
+def _sqrt_digits() -> tuple[int, ...]:
+    """(q+1)/4 as MSB-first 2-bit digits for the windowed powering chain."""
+    e = (Q + 1) // 4
+    nb = e.bit_length()
+    nb += nb & 1
+    return tuple((e >> (nb - 2 * (j + 1))) & 3 for j in range(nb // 2))
+
+
+SQRT_DIGITS = _sqrt_digits()
+
+
 def reset_launches() -> None:
-    for k in KERNELS:
-        LAUNCHES[k] = 0
+    with _LAUNCHES_LOCK:
+        for k in KERNELS:
+            LAUNCHES[k] = 0
 
 
 # --------------------------------------------------------------------------
@@ -81,10 +104,33 @@ def _so(name: str) -> pathlib.Path:
 
 
 def _fresh(name: str) -> bool:
+    """Built after its source, the shared headers and this module (which
+    generates `sqrt_constants.h`)."""
     so = _so(name)
-    srcs = (CSRC / f"{name}.cu", CSRC / "bls12_381.cuh")
+    srcs = [CSRC / f"{name}.cu", pathlib.Path(__file__), *CSRC.glob("*.cuh")]
     return so.exists() and so.stat().st_mtime > max(s.stat().st_mtime
                                                     for s in srcs)
+
+
+def _u32s(x: int, n: int) -> str:
+    return ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(n))
+
+
+def _write_constants() -> None:
+    """`sqrt_constants.h` for g1_sqrt.cuh, from the port's constants."""
+    digits = ", ".join(map(str, SQRT_DIGITS))
+    (BUILD_DIR / "sqrt_constants.h").write_text(f"""\
+// generated by curdleproofs_tpu_torch/ops/kernels.py; do not edit
+#pragma once
+#include <stdint.h>
+namespace cp {{
+// b = {CURVE_B} in Montgomery form (R = 2^384), 12 x 32-bit limbs
+__constant__ const uint32_t B_MONT[12] = {{{_u32s(FQ.to_mont(CURVE_B), 12)}}};
+// (q+1)/4 as two-bit digits, most significant first
+constexpr int SQRT_NDIGITS = {len(SQRT_DIGITS)};
+__constant__ const uint8_t SQRT_DIGITS[SQRT_NDIGITS] = {{{digits}}};
+}}  // namespace cp
+""")
 
 
 def build(force: bool = False) -> dict[str, str]:
@@ -97,10 +143,12 @@ def build(force: bool = False) -> dict[str, str]:
         fcntl.flock(lock, fcntl.LOCK_EX)
         todo = [k for k in KERNELS if force or not _fresh(k)]
         nvcc = _nvcc() if todo else ""
+        _write_constants()
         procs = {}
         for k in todo:
             tmp = _so(k).with_suffix(f".so.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{k}.cu")]
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(BUILD_DIR), "-o", str(tmp),
+                   str(CSRC / f"{k}.cu")]
             procs[k] = (tmp, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True))
@@ -134,7 +182,8 @@ def _launch(name: str, device: torch.device, *args) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
-    LAUNCHES[name] += 1
+    with _LAUNCHES_LOCK:
+        LAUNCHES[name] += 1
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -228,6 +277,11 @@ def g1_fold_madd(ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
     Montgomery (see `g1_fold_madd_plain` for the function)."""
     if _on_cpu(ext_px, ext_py, ext_zb, plan):
         return g1_fold_madd_plain(ext_px, ext_py, ext_zb, plan)
+    return _fold_launch("g1_fold_madd", ext_px, ext_py, ext_zb, plan)
+
+
+def _fold_launch(name, ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
+    """Launch either fold kernel (they share one interface)."""
     n_ext = ext_px.shape[1]
     if ext_px.shape != (L // 2, n_ext) or ext_py.shape != ext_px.shape \
             or ext_zb.shape != (n_ext,) or plan.ndim != 2:
@@ -238,7 +292,7 @@ def g1_fold_madd(ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
     outs = [torch.empty((L, s_pad), dtype=torch.int32, device=plan.device)
             for _ in range(3)]
     if s_pad:
-        _launch("g1_fold_madd", plan.device,
+        _launch(name, plan.device,
                 *(t.data_ptr() for t in (ext_px, ext_py, ext_zb, plan)),
                 n_ext, t_rows, s_pad, *(t.data_ptr() for t in outs))
     return PointsXYZ(*outs)
@@ -279,3 +333,70 @@ def g1_suffix_weighted(x, y, z) -> tuple[PointsXYZ, PointsXYZ]:
                 *(t.data_ptr() for t in (x, y, z)), cb, wg,
                 *(t.data_ptr() for t in outs))
     return PointsXYZ(*outs[:3]), PointsXYZ(*outs[3:])
+
+
+# --------------------------------------------------------------------------
+# g1_fold_packed
+# --------------------------------------------------------------------------
+
+def g1_fold_packed_plain(ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
+    """Gather, then fold with the complete add: slot s accumulates the
+    bases ext[:, plan[t, s]] for t = 0..T-1, each with z = Montgomery one
+    where its liveness bit is set and 0 where not; every row is added, dead
+    rows too (the reference's full-add fold).  ext_*: [12, E] pairs / [E]
+    bits; plan: [T, S]."""
+    t_rows, s_pad = plan.shape
+    one = limb_col(FQ.one_mont, L, plan.device)
+    acc = g1_infinity64((s_pad,), plan.device)
+    for t in range(t_rows):
+        row = plan[t].long()
+        qz = torch.where(ext_zb[row][None] != 0, one, 0)
+        acc = g1_add64(acc, PointsXYZ(unpack_pairs(ext_px[:, row]),
+                                      unpack_pairs(ext_py[:, row]), qz))
+    return PointsXYZ(*(c.int() for c in acc))
+
+
+def g1_fold_packed(ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
+    """The full-add bucket fold over resident bases; returns [24, S] x3
+    projective Montgomery (see `g1_fold_packed_plain` for the function)."""
+    if _on_cpu(ext_px, ext_py, ext_zb, plan):
+        return g1_fold_packed_plain(ext_px, ext_py, ext_zb, plan)
+    return _fold_launch("g1_fold_packed", ext_px, ext_py, ext_zb, plan)
+
+
+# --------------------------------------------------------------------------
+# g1_sqrt
+# --------------------------------------------------------------------------
+
+def g1_sqrt_plain(pxp: torch.Tensor) -> torch.Tensor:
+    """[12, n] packed Montgomery x -> [24, n] Montgomery y-candidate
+    (x^3 + b)^((q+1)/4), by the kernel's chain: u = x^3 + b, then per
+    digit d of SQRT_DIGITS two squarings and a multiply by u^d (u^0 =
+    Montgomery one).  The JAX package's jnp twin of the TPU kernel."""
+    x = unpack_pairs(pxp)
+    mul = FQ.mul64
+    u = FQ.add64(mul(mul(x, x), x), limb_col(FQ.to_mont(CURVE_B), L, x.device))
+    one = limb_col(FQ.one_mont, L, x.device).expand_as(x)
+    u2 = mul(u, u)
+    tab = (one, u, u2, mul(u2, u))
+    acc = one
+    for d in SQRT_DIGITS:
+        acc = mul(acc, acc)
+        acc = mul(acc, acc)
+        acc = mul(acc, tab[d])
+    return acc.int()
+
+
+def g1_sqrt(pxp: torch.Tensor) -> torch.Tensor:
+    """y-candidates of packed x [12, n] (see `g1_sqrt_plain`); the caller
+    fixes the sign and the dead lanes."""
+    if _on_cpu(pxp):
+        return g1_sqrt_plain(pxp)
+    if pxp.ndim != 2 or pxp.shape[0] != L // 2:
+        raise ValueError("sqrt takes [12, n] packed limb pairs")
+    pxp = pxp.contiguous()
+    n = pxp.shape[1]
+    out = torch.empty((L, n), dtype=torch.int32, device=pxp.device)
+    if n:
+        _launch("g1_sqrt", pxp.device, pxp.data_ptr(), n, out.data_ptr())
+    return out

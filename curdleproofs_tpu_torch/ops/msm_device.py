@@ -1,14 +1,17 @@
 """On-device Pippenger MSM (torch): the JAX package's single-program pipeline,
-stage for stage, with the four hand-written CUDA kernels doing the point
-math on the card.
+stage for stage, with the hand-written CUDA kernels doing the point math
+on the card.
 
 Stages per MSM (`_pipeline_core`): signed-digit recode, per-window bucket
-sort, slot plan, bucket fold (`g1_fold_madd` kernel), slot merge (`g1_add`
-kernel), dense bucket layout, bucket reduction (`g1_suffix_weighted` kernel,
-then `g1_add` suffix scans and the x Cb doubling chain), and the leave-
-Montgomery multiply (`fq_mul` kernel).  The host uploads the 32-byte scalars
-(bases stay resident, see `prepare_bases`), downloads W window sums, and
-finishes with a W-term Horner ladder.
+sort, slot plan, bucket fold (`g1_fold_madd` kernel, or `g1_fold_packed`
+with `madd=False`), slot merge (`g1_add` kernel), dense bucket
+layout, bucket reduction (`g1_suffix_weighted` kernel, then `g1_add` suffix
+scans and the x Cb doubling chain), and the leave-Montgomery multiply
+(`fq_mul` kernel).  The host uploads the 32-byte scalars (bases stay
+resident, see `prepare_bases`; on the card they cross compressed and the
+`g1_sqrt` kernel rebuilds y), downloads W window sums, and finishes with a
+W-term Horner ladder.  `DeviceMsmStream` runs many chunks of one fixed shape
+family and sums their window sums (batch verification's streamed MSM).
 
 Shape families are the reference's: c in {8, 16}, slot depth T, slot count
 s_pad (see `pick_params`), so every stage compares with the JAX pipeline.
@@ -25,6 +28,7 @@ the CPU reference the tests hold against the JAX package.
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -35,11 +39,12 @@ from ..host.g1 import G1
 from .device import resolve_device
 from .field import FQ, pack_pairs, unpack_pairs
 from .g1_ops import PointsXYZ, g1_add, g1_infinity, points_to_device
-from .kernels import g1_fold_madd, g1_suffix_weighted
+from .kernels import g1_fold_madd, g1_fold_packed, g1_sqrt, g1_suffix_weighted
 from .limbs import FQ_LIMBS
 
-__all__ = ["DeviceBases", "MsmParams", "msm_device", "pick_params",
-           "prepare_bases"]
+__all__ = ["STREAM_LOGN", "DeviceBases", "DeviceMsmStream", "MsmParams",
+           "msm_device", "pick_params", "prepare_bases", "stream_params",
+           "use_compressed_upload"]
 
 _BIG = 1 << 30  # "unwritten" sentinel for scatter-built tables
 
@@ -140,6 +145,37 @@ def _ingest_packed_mont(pxp, pyp, zb):
     return ext_px, ext_py, ext_zb
 
 
+def use_compressed_upload(device: torch.device) -> bool:
+    """Upload x and a parity bit (52 B a point instead of 100) and rebuild y
+    on the device, wherever the `g1_sqrt` kernel runs: on a CUDA card.
+    `CURDLEPROOFS_COMPRESS=0/1` overrides, as in the reference (which
+    compresses because its TPU link ran at ~14 MB/s; whether it pays over
+    the card's link is measured by `chip_smoke.py`)."""
+    v = os.environ.get("CURDLEPROOFS_COMPRESS")
+    if v is not None:
+        return v != "0"
+    return device.type == "cuda"
+
+
+def _ingest_compressed(pxp: torch.Tensor, meta: torch.Tensor):
+    """Packed Montgomery x limb pairs [12, n] + meta bits [n] (liveness |
+    canonical_y_parity << 1) -> the extended resident layout.
+
+    y = (x^3 + b)^((q+1)/4) comes from the `g1_sqrt` kernel (its plain
+    version on the CPU), is negated where its canonical parity differs from
+    the wanted one (`fq_mul` by the plain 1 reads the parity), and is the
+    identity's (0, 1) on dead lanes."""
+    dev = pxp.device
+    n = pxp.shape[1]
+    y = g1_sqrt(pxp)
+    live = meta & 1
+    want = (meta >> 1) & 1
+    lsb = FQ.mul(y, FQ.plain_const(1, (1,), dev))[0] & 1
+    y = torch.where(((lsb ^ want) == 1)[None], FQ.neg(y), y)
+    y = torch.where((live == 1)[None], y, FQ.const(1, (n,), dev))
+    return _ingest_packed_mont(pxp, pack_pairs(y), live)
+
+
 def u32_to_tensor(a: np.ndarray, device) -> torch.Tensor:
     """uint32 numpy -> int32 tensor with the same bit patterns."""
     return torch.from_numpy(np.array(a, dtype=np.uint32)
@@ -150,19 +186,34 @@ class DeviceBases:
     """Bases uploaded once and kept resident on `device` as [P | -P | inf].
 
     `msm_device` accepts it in place of the point list.  The wrapped list is
-    padded with the identity up to `pad_n(len(points))`; identity rows absorb
-    the padding scalars (zero).  With the native runtime, one C++
-    batch-normalize exports the affine Montgomery residues as packed limb
-    pairs (no Python bigint work per point); without it, the bigint path
-    converts on the device."""
+    padded with the identity up to `pad_n(len(points))`, or to `n_pad` where
+    the caller pins the shape family (a `pad_n` fixed point, as
+    `DeviceMsmStream` chunks do); identity rows absorb the padding scalars
+    (zero).  With the native runtime, one C++ batch-normalize exports the
+    affine Montgomery residues as packed limb pairs (no Python bigint work
+    per point): x and the parity bits alone where `use_compressed_upload`
+    says so, else x and y; without it, the bigint path converts on the
+    device."""
 
-    def __init__(self, points: list[G1], device="cuda"):
+    def __init__(self, points: list[G1], device="cuda",
+                 n_pad: int | None = None):
         from ..host import native
 
         self.device = resolve_device(device)
         self.n_real = len(points)
-        self.n = pad_n(len(points))
-        if native.available() and points:
+        if n_pad is None:
+            self.n = pad_n(len(points))
+        elif n_pad < len(points) or pad_n(n_pad) != n_pad:
+            raise ValueError(f"n_pad = {n_pad} is not a padded shape family "
+                             f"for {len(points)} points")
+        else:
+            self.n = n_pad
+        if native.available() and points \
+                and use_compressed_upload(self.device):
+            px, meta = native.export_mont_x(points, self.n)
+            self.ext_px, self.ext_py, self.ext_zb = _ingest_compressed(
+                *(u32_to_tensor(a, self.device) for a in (px, meta)))
+        elif native.available() and points:
             px, py, zb = native.export_mont_affine(points, self.n)
             self.ext_px, self.ext_py, self.ext_zb = _ingest_packed_mont(
                 *(u32_to_tensor(a, self.device) for a in (px, py, zb)))
@@ -212,18 +263,19 @@ def prepare_bases(points: list[G1], device="cuda") -> DeviceBases:
     return db
 
 
-def _scalars_to_limbs(scalars: "list[int] | bytes", n_pad: int) -> np.ndarray:
-    """Canonical scalars -> [16, n_pad] uint16 of 16-bit limbs (32 B each).
-
-    Accepts python ints or a canonical 32 B-LE buffer (the verifier's
-    fused-dedup output: no int round trip)."""
+def _scalar_bytes(scalars: "list[int] | bytes") -> bytes:
+    """Python ints (reduced mod r) or a canonical 32 B-LE buffer (the
+    verifier's fused-dedup output: no int round trip) -> the buffer."""
     if isinstance(scalars, (bytes, bytearray)):
-        buf, n = bytes(scalars), len(scalars) // 32
-    else:
-        n = len(scalars)
-        buf = b"".join(
-            (s if 0 <= s < R else s % R).to_bytes(32, "little")
-            for s in scalars)
+        return bytes(scalars)
+    return b"".join((s if 0 <= s < R else s % R).to_bytes(32, "little")
+                    for s in scalars)
+
+
+def _scalars_to_limbs(scalars: "list[int] | bytes", n_pad: int) -> np.ndarray:
+    """Canonical scalars -> [16, n_pad] uint16 of 16-bit limbs (32 B each)."""
+    buf = _scalar_bytes(scalars)
+    n = len(buf) // 32
     le16 = np.frombuffer(buf, dtype="<u2").reshape(n, 16)
     out = np.zeros((n_pad, 16), dtype=np.uint16)
     out[:n] = le16
@@ -346,11 +398,12 @@ def _where(mask: torch.Tensor, a: PointsXYZ, b: PointsXYZ) -> PointsXYZ:
 
 
 def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
-                   mark=None):
+                   madd=True, mark=None):
     """Window sums for the windows of signed digits [W, n] over the extended
-    points [P | -P | inf] -> [3, 24, W] canonical projective.  `mark(stage)`,
-    when given, is called as each stage has been queued (a caller records
-    CUDA events there)."""
+    points [P | -P | inf] -> [3, 24, W] canonical projective.  `madd` picks
+    the fold (`g1_fold_madd`, else the full-add `g1_fold_packed`).
+    `mark(stage)`, when given, is called as each stage has been queued (a
+    caller records CUDA events there)."""
     mark = mark or (lambda stage: None)
     w_cnt = digits.shape[0]
     b_cnt = 1 << (c - 1)
@@ -362,7 +415,8 @@ def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
     mark("plan")
 
     # -- 8. bucket fold (the hot kernel) -----------------------------------
-    acc = g1_fold_madd(ext_px, ext_py, ext_zb, sp.plan)
+    fold = g1_fold_madd if madd else g1_fold_packed
+    acc = fold(ext_px, ext_py, ext_zb, sp.plan)
     mark("fold")
 
     # -- 9. merge slots of equal bucket (masked Hillis-Steele suffix scan) --
@@ -436,7 +490,7 @@ def _leave_montgomery(wsum: PointsXYZ) -> torch.Tensor:
 
 
 def _msm_pipeline(bases: "DeviceBases", limbs: np.ndarray,
-                  params: MsmParams, mark=None) -> torch.Tensor:
+                  params: MsmParams, mark=None, madd=True) -> torch.Tensor:
     """[16, n] uint16 scalar limbs -> [3, 24, W] canonical window sums."""
     mark = mark or (lambda stage: None)
     lt = torch.from_numpy(limbs.astype(np.int32)).to(bases.device)
@@ -445,7 +499,16 @@ def _msm_pipeline(bases: "DeviceBases", limbs: np.ndarray,
     mark("recode")
     return _pipeline_core(bases.ext_px, bases.ext_py, bases.ext_zb, digits,
                           n=params.n, c=params.c, t_rows=params.t_rows,
-                          s_pad=params.s_pad, mark=mark)
+                          s_pad=params.s_pad, madd=madd, mark=mark)
+
+
+def _dispatch_pipeline(bases: "DeviceBases", scalars: "list[int] | bytes",
+                       params: MsmParams, mark=None,
+                       madd=True) -> torch.Tensor:
+    """Queue one pipeline run; returns the device's [3, 24, W] window sums
+    without waiting for them."""
+    return _msm_pipeline(bases, _scalars_to_limbs(scalars, params.n), params,
+                         mark, madd=madd)
 
 
 # --------------------------------------------------------------------------
@@ -478,13 +541,15 @@ def _window_sums_to_host(out: np.ndarray) -> list[G1]:
 
 def msm_device(points: "list[G1] | DeviceBases",
                scalars: "list[int] | bytes", c: int | None = None,
-               device="cuda", mark=None) -> G1:
+               device="cuda", mark=None, madd=True) -> G1:
     """Device MSM: one pipeline run + a W-term host Horner ladder.
 
     `points` may be a DeviceBases (its own device wins) or a plain list
     (uploaded to `device` through the `prepare_bases` id-cache).  `scalars`
     may be python ints or canonical 32 B-LE raw bytes.  `mark(stage)` is
-    called after each pipeline stage is queued (see `_pipeline_core`)."""
+    called after each pipeline stage is queued (see `_pipeline_core`).
+    `madd=False` folds with the 12-mul full add (`g1_fold_packed`) instead
+    of the 11-mul mixed add on the affine bases."""
     if isinstance(points, DeviceBases):
         bases = points
         n_real = bases.n_real
@@ -498,8 +563,7 @@ def msm_device(points: "list[G1] | DeviceBases",
     params = pick_params(bases.n, c)  # pad_n fixed point: params.n == bases.n
     if params.n != bases.n:
         raise ValueError("bases padded under a different shape family")
-    out = _msm_pipeline(bases, _scalars_to_limbs(scalars, params.n), params,
-                        mark)
+    out = _dispatch_pipeline(bases, scalars, params, mark, madd)
     return _horner_windows(_window_sums_to_host(out.cpu().numpy()), params.c)
 
 
@@ -515,3 +579,126 @@ def _horner_windows(win: list[G1], c_bits: int) -> G1:
             acc = acc.double()
         acc = acc.add(win[w])
     return acc
+
+
+# --------------------------------------------------------------------------
+# streamed MSM (batch verification)
+# --------------------------------------------------------------------------
+
+STREAM_LOGN = 16  # the streamed-batch chunk family: n = 2^16 per dispatch
+
+
+def stream_params(c: int | None = None) -> MsmParams:
+    """The one fixed shape family every default `DeviceMsmStream` dispatch
+    uses, whatever sizes `add()` receives."""
+    return pick_params(1 << STREAM_LOGN, c)
+
+
+class DeviceMsmStream:
+    """Pipelined many-chunk MSM on `device`: `add()` buffers terms and
+    dispatches one pipeline run per FULL chunk of `params.n` terms;
+    `result()` dispatches the tail, waits, and returns the MSM of every term
+    added so far.
+
+    MSM(all) = sum_k MSM(chunk_k) because Pippenger window sums are
+    additive, so chunks combine with W host point-adds each, and the device
+    crunches chunk k while the host prepares chunk k+1.  Every dispatch
+    shares one shape family whatever sizes `add()` receives.
+
+    With `async_worker=True` the dispatches (base export, ingest, scalar
+    upload, pipeline) run on a worker thread, on PyTorch's current stream
+    for `device` in that thread; the merge loop's bound read waits there,
+    not in the caller.  A dispatch that raises stops the stream: later
+    chunks are drained unrun, and `result()` raises that error, now and on
+    every later call, so no partial sum is ever returned.  After `result()`
+    the stream stays usable: a later `add()` starts a new worker.
+
+    `mark(stage)`, when given, is called at the start of each dispatch
+    ("start"), once its bases are resident ("ingest"), and after each
+    pipeline stage is queued (see `_pipeline_core`); `madd` picks the fold
+    as in `msm_device`."""
+
+    def __init__(self, n_chunk: int | None = None, c: int | None = None,
+                 async_worker: bool = False, device="cuda", mark=None,
+                 madd=True):
+        self.device = resolve_device(device)
+        self.params = (stream_params(c) if n_chunk is None
+                       else pick_params(n_chunk, c))
+        self.mark = mark
+        self.madd = madd
+        self._async = async_worker
+        self._outs: list[torch.Tensor] = []
+        self._pts: list[G1] = []
+        self._sc = bytearray()
+        self._q = None
+        self._thread = None
+        self._error: BaseException | None = None
+
+    @property
+    def dispatches(self) -> int:
+        """Pipeline runs finished or queued so far."""
+        return len(self._outs)
+
+    def _worker(self, q) -> None:
+        while True:
+            job = q.get()
+            if job is None:
+                return
+            if self._error is not None:
+                continue  # drain: the producer never blocks on a dead worker
+            try:
+                self._dispatch(*job)
+            except BaseException as e:  # noqa: BLE001 - raised in result()
+                self._error = e
+
+    def add(self, points: list[G1], scalars: "list[int] | bytes") -> None:
+        if len(points) != _scalars_len(scalars):
+            raise ValueError("points/scalars length mismatch")
+        self._pts.extend(points)
+        self._sc += _scalar_bytes(scalars)
+        n = self.params.n
+        while len(self._pts) >= n:
+            self._submit(self._pts[:n], bytes(self._sc[: n * 32]))
+            del self._pts[:n]
+            del self._sc[: n * 32]
+
+    def _submit(self, pts: list[G1], sc: bytes) -> None:
+        if not self._async:
+            self._dispatch(pts, sc)
+            return
+        if self._thread is None:
+            import queue
+            import threading
+
+            self._q = queue.Queue(maxsize=4)
+            self._thread = threading.Thread(target=self._worker,
+                                            args=(self._q,), daemon=True)
+            self._thread.start()
+        self._q.put((pts, sc))
+
+    def _dispatch(self, pts: list[G1], sc: bytes) -> None:
+        mark = self.mark or (lambda stage: None)
+        mark("start")
+        bases = DeviceBases(pts, self.device, n_pad=self.params.n)
+        mark("ingest")
+        self._outs.append(_dispatch_pipeline(bases, sc, self.params, mark,
+                                             self.madd))
+
+    def result(self) -> G1:
+        if self._pts:
+            self._submit(self._pts, bytes(self._sc))
+            self._pts, self._sc = [], bytearray()
+        if self._thread is not None:
+            self._q.put(None)
+            self._thread.join()
+            self._thread, self._q = None, None
+        if self._error is not None:
+            raise self._error
+        wins: list[G1] | None = None
+        for out in self._outs:
+            pts = _window_sums_to_host(out.cpu().numpy())
+            wins = pts if wins is None else [a.add(b)
+                                             for a, b in zip(wins, pts)]
+        if wins is None:
+            return G1.infinity()
+        return _horner_windows(wins, self.params.c)

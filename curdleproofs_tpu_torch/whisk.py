@@ -27,6 +27,7 @@ from .util import shuffle_permute_and_commit_input
 __all__ = [
     "WhiskTracker", "WhiskShuffleProof", "TrackerProof",
     "generate_whisk_shuffle_proof", "is_valid_whisk_shuffle_proof",
+    "is_valid_whisk_shuffle_proofs",
     "generate_whisk_tracker_proof", "is_valid_whisk_tracker_proof",
     "to_bytes_g1affine", "from_bytes_g1affine", "to_bytes_fr", "from_bytes_fr",
     "g1_generator", "bls_g1_scalar_multiply", "rand_scalar",
@@ -212,6 +213,45 @@ def is_valid_whisk_shuffle_proof(
         return True
     except VerificationError:
         return False
+
+
+def is_valid_whisk_shuffle_proofs(
+    rng: StdRng, crs: CurdleproofsCrs,
+    shuffles: "list[tuple[list[WhiskTracker], list[WhiskTracker], bytes]]",
+    identify: bool = False,
+) -> "bool | list[bool]":
+    """Byte-level batch twin of `is_valid_whisk_shuffle_proof` (new
+    capability; the reference verifies one shuffle per call, whisk.rs:106).
+
+    `shuffles` is a list of (pre_trackers, post_trackers, proof_bytes),
+    e.g. a chain-sync segment of Whisk shuffle blocks.  All proofs share one
+    deduped accumulator MSM (`parallel/batch_verify.py`), which the active
+    backend runs, and consecutive blocks' tracker lists overlap (block k's
+    post == block k+1's pre), so the validated-decompress cache collapses
+    their sqrt + subgroup work.
+
+    All-or-nothing bool; `identify=True` bisects to per-shuffle verdicts on
+    failure.  Malformed bytes raise SerializationError (same surface as the
+    single-proof path).
+    """
+    from .parallel.batch_verify import ShuffleInstance, batch_verify
+
+    # tracker unzips stay OUTSIDE the deferred context: the eager path fuses
+    # the subgroup ladder into the decompress call on already-loaded affine
+    # coordinates, which beats deferring (defer = re-serialize + re-load the
+    # points for a separate ladder).  Deferral only wins for the proofs'
+    # scattered small point groups, where ONE context spans the segment.
+    instances, proofs = [], []
+    for pre, post, _ in shuffles:
+        vec_r, vec_s = _unzip_trackers(pre)
+        vec_t, vec_u = _unzip_trackers(post)
+        instances.append(ShuffleInstance(vec_r, vec_s, vec_t, vec_u, None))
+    with deferred_subgroup_checks():  # ONE ladder for ~90 x B proof points
+        for inst, (_, _, proof_bytes) in zip(instances, shuffles):
+            wsp = WhiskShuffleProof.deserialize(proof_bytes, crs.log2_n())
+            inst.M = wsp.M
+            proofs.append(wsp.proof)
+    return batch_verify(crs, instances, proofs, rng, identify=identify)
 
 
 def generate_whisk_tracker_proof(rng: StdRng, tracker: WhiskTracker,

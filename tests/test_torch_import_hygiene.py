@@ -22,12 +22,20 @@ for m in pkgutil.walk_packages(pkg.__path__, "curdleproofs_tpu_torch."):
     importlib.import_module(m.name)
 from curdleproofs_tpu_torch.backend import use_backend
 from curdleproofs_tpu_torch.ops.backend import TorchBackend
-from curdleproofs_tpu_torch.ops.msm_device import msm_device
+from curdleproofs_tpu_torch.ops.msm_device import DeviceMsmStream, msm_device
+from curdleproofs_tpu_torch.ops.msm_tune import load_table
+from curdleproofs_tpu_torch.parallel.batch_verify import plan_split_fraction
+from curdleproofs_tpu_torch.whisk import is_valid_whisk_shuffle_proofs
 from curdleproofs_tpu_torch.host.rng import StdRng
 rng = StdRng.seed_from_u64(1)
 pts = [rng.rand_g1() for _ in range(9)]
 with use_backend(TorchBackend(device="cpu")) as b:
     b.msm(pts, list(range(9)))
+    s = DeviceMsmStream(64, device="cpu")
+    s.add(pts, list(range(9)))
+    s.result()
+    load_table("cpu")
+    plan_split_fraction(device="cpu")
 bad = sorted(n for n in sys.modules
              if n == "curdleproofs_tpu" or n.startswith("curdleproofs_tpu."))
 print("LOADED", bad)
@@ -47,6 +55,8 @@ def test_port_sources_import_no_jax():
     pat = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b)", re.M)
     files = sorted(_PKG.rglob("*.py")) + [_REPO / "chip_smoke.py"]
     assert len(files) > 20
+    assert {_PKG / "parallel" / "batch_verify.py",
+            _PKG / "ops" / "msm_tune.py"} <= set(files)
     offenders = [str(f.relative_to(_REPO)) for f in files
                  if pat.search(f.read_text())]
     assert offenders == []
