@@ -4,12 +4,15 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. the card: name and power limit as nvidia-smi reports them;
-2. build the six CUDA kernels from `curdleproofs_tpu_torch/csrc/`, then
-   hold each against its plain PyTorch version on the card (array
-   equality), timed with CUDA events: at the 626k MSM's own shapes (both
-   folds on its plan, the merge's g1_add over its slots, the suffix kernel,
-   fq_mul at leave-Montgomery's [24, W], g1_sqrt over its 655,360 padded
-   bases), and fq_mul and g1_add at 2^16; the 626k bases made resident
+2. build the seven CUDA sources from `curdleproofs_tpu_torch/csrc/`, then
+   hold each of the eight kernel wrappers against its plain PyTorch version
+   on the card (array equality), timed with CUDA events: at the 626k MSM's
+   own shapes (both folds on its plan, the merge's g1_add over its slots,
+   the suffix kernel, fq_mul at leave-Montgomery's [24, W], g1_sqrt over
+   its 655,360 padded bases), g1_fold_rows on rows gathered from the first
+   2^17 slots of that plan (z from the liveness bit, so dead rows have
+   z = 0), and fq_mul, g1_add and g1_add_rows at 2^16; the fold's ptxas
+   registers and spills go into its record; the 626k bases made resident
    compressed (x + parity, y from g1_sqrt) and uncompressed must be
    bit-identical, with each upload's wall time and bytes (after one untimed
    warm-up upload, three timed uploads each way, in turns);
@@ -36,11 +39,13 @@ Kernel launches are counted for each driven path on its own (zeroed just
 before it, read just after it): the MSMs at 2^16 and 626k, the full-add
 MSM, the protocol run of phase 4 (l = 124 and l = 252 together), the Whisk
 chain and the batch verification.  Each path must launch every kernel
-`EXPECTED` lists for it.  The kernels' JSON record, on the line before the
-last, carries each kernel's counts on its own main path under `launches`
-(the protocol run; for g1_fold_packed the full-add MSM; named in
-`launches_path`) and every path's under `launches_by_path`; the last line
-is the device record.
+`EXPECTED` lists for it.  g1_fold_rows and g1_add_rows have no caller (none
+in the JAX package either): they are held against their plain versions in
+phase 2 and launch on no path.  The kernels' JSON record, on the line
+before the last, carries each kernel's counts on its own main path under
+`launches` (the protocol run; for g1_fold_packed the full-add MSM; named
+in `launches_path`) and every path's under `launches_by_path`; the last
+line is the device record.
 """
 
 from __future__ import annotations
@@ -78,7 +83,11 @@ REPLACES = {
     "g1_suffix_weighted": "curdleproofs_tpu/ops/pallas_kernels.py:505",
     "g1_fold_packed": "curdleproofs_tpu/ops/pallas_kernels.py:439",
     "g1_sqrt": "curdleproofs_tpu/ops/pallas_kernels.py:201",
+    "g1_fold_rows": "curdleproofs_tpu/ops/pallas_kernels.py:453",
+    "g1_add_rows": "curdleproofs_tpu/ops/pallas_kernels.py:526",
 }
+NO_CALLER = {"g1_fold_rows", "g1_add_rows"}
+FOLD_ROWS_S = 1 << 17       # g1_fold_rows: the first 2^17 slots of the plan
 _MSM = {"fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted"}
 # the kernels each driven path must launch: g1_sqrt wherever the counted
 # window uploads fresh bases (the direct MSMs' bases are resident before
@@ -176,7 +185,7 @@ def main() -> int:
     from curdleproofs_tpu_torch.ops import kernels as K
     from curdleproofs_tpu_torch.ops import msm_device as md
     from curdleproofs_tpu_torch.ops.backend import TorchBackend
-    from curdleproofs_tpu_torch.ops.field import FQ
+    from curdleproofs_tpu_torch.ops.field import FQ, unpack_pairs
     from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ, points_to_device
     from curdleproofs_tpu_torch.parallel import batch_verify as bv
     from curdleproofs_tpu_torch.util import (
@@ -236,7 +245,8 @@ def main() -> int:
         else:
             records[name] = {
                 "name": name, "route": "cuda",
-                "source": f"curdleproofs_tpu_torch/csrc/{name}.cu",
+                "source": f"curdleproofs_tpu_torch/csrc/"
+                          f"{K.source_of(name)}.cu",
                 "replaces": REPLACES[name], **at, "library_ms": None,
                 "more_shapes": []}
         log(f"kernel {name} at {shape}: equal to plain; {ms:.4f} ms (plain "
@@ -310,12 +320,29 @@ def main() -> int:
         lambda: K.g1_fold_madd(*ext, sp.plan),
         lambda: K.g1_fold_madd_plain(*ext, sp.plan), 3,
         fold_bytes, live_rows * 11 * MUL32_PER_FQ_MUL))
+    usage = K.ptxas_usage(reports["g1_fold_madd"], "g1_fold_madd_kernel")
+    if set(usage) != {"registers", "spill_bytes"}:
+        raise AssertionError(f"no ptxas report for g1_fold_madd: {usage}")
+    records["g1_fold_madd"].update(usage)
     # the full-add fold computes every row, dead ones too; its bound counts
     # the live rows' adds, the least work that gives the same sums
     check("g1_fold_packed", f"plan [{t_rows}, {s_pad}] over {e_cnt} bases",
           lambda: K.g1_fold_packed(*ext, sp.plan),
           lambda: K.g1_fold_packed_plain(*ext, sp.plan), 3,
           fold_bytes, live_rows * 12 * MUL32_PER_FQ_MUL)
+
+    # g1_fold_rows on [24, T, S] rows gathered from the plan's first slots,
+    # z rebuilt from the liveness bit (dead rows z = 0, added all the same)
+    cols = sp.plan[:, :FOLD_ROWS_S].long()
+    one = FQ.const(1, (1, 1), dev)
+    rows = (unpack_pairs(ext[0][:, cols]).int(),
+            unpack_pairs(ext[1][:, cols]).int(),
+            torch.where(ext[2][cols][None] != 0, one, 0).int())
+    check("g1_fold_rows", f"[24, {t_rows}, {FOLD_ROWS_S}] rows of the plan",
+          lambda: K.g1_fold_rows(*rows), lambda: K.g1_fold_rows_plain(*rows),
+          3, 3 * 96 * t_rows * FOLD_ROWS_S + 3 * 96 * FOLD_ROWS_S,
+          t_rows * FOLD_ROWS_S * 12 * MUL32_PER_FQ_MUL)
+    del rows, cols
 
     partner = torch.clamp(torch.arange(s_pad, device=dev) + 1, max=s_pad - 1)
     nxt = md._take(acc, partner)
@@ -355,6 +382,9 @@ def main() -> int:
           50, 3 * 96 * n16, n16 * MUL32_PER_FQ_MUL)
     check("g1_add", f"N = {n16}", lambda: K.g1_add(pp, b),
           lambda: K.g1_add_plain(pp, b),
+          20, 9 * 96 * n16, n16 * 12 * MUL32_PER_FQ_MUL)
+    check("g1_add_rows", f"N = {n16}", lambda: K.g1_add_rows(pp, b),
+          lambda: K.g1_add_rows_plain(pp, b),
           20, 9 * 96 * n16, n16 * 12 * MUL32_PER_FQ_MUL)
     del pp, a, b, dense, sp, limbs, acc, nxt, wx, pxp, px
 
@@ -571,7 +601,8 @@ def main() -> int:
     for name, rec in records.items():
         path = FULL_ADD_PATH if name == "g1_fold_packed" else MAIN_PATH
         rec["launches"] = by_path[path][name]
-        rec["launches_path"] = path
+        rec["launches_path"] = ("kernel check only (no caller in the JAX "
+                                "package)") if name in NO_CALLER else path
         rec["launches_by_path"] = {p: v[name] for p, v in by_path.items()}
 
     print(json.dumps({"kernels": [records[k] for k in K.KERNELS]}))

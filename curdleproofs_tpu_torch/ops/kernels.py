@@ -4,16 +4,20 @@ each its plain PyTorch version.
 Kernels (sources in `../csrc/`, one shared object each):
 - `fq_mul`             batched Montgomery product          (fq_mul.cu)
 - `g1_add`             complete projective add             (g1_add.cu)
-- `g1_fold_madd`       Pippenger bucket fold, mixed adds   (g1_fold_madd.cu)
+- `g1_fold_madd`       Pippenger bucket fold, mixed adds   (g1_fold_madd.cu,
+                       on the carry-chain core fq_cc.cuh)
 - `g1_suffix_weighted` bucket-reduction inner step         (g1_suffix_weighted.cu)
 - `g1_fold_packed`     Pippenger bucket fold, full adds    (g1_fold_packed.cu)
 - `g1_sqrt`            y from x, compressed base ingest    (g1_sqrt.cu)
+- `g1_fold_rows`       fold of gathered [24, T, S] rows    (g1_fold_rows.cu)
+- `g1_add_rows`        batched add on [24, N] 3-tuples     (launches g1_add.cu)
 
 Each wrapper takes the reference layouts as int32 tensors (16-bit limbs
 `[24, ...]`, packed limb pairs `[12, ...]`; the kernels read them as
 uint32).  For a tensor on the CPU it runs the plain version; for a CUDA
 tensor it launches the kernel, or raises.  `LAUNCHES` counts kernel launches
-per wrapper, so a run can show its main path went through the kernels.
+per wrapper, so a run can show its main path went through the kernels
+(`g1_add_rows` counts its own launches of g1_add.cu's entry).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into `../_build/cuda/`
 at first use, one process per source, all started together (`build()`),
@@ -28,6 +32,7 @@ import fcntl
 import functools
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import threading
@@ -44,10 +49,14 @@ __all__ = ["KERNELS", "LAUNCHES", "SQRT_DIGITS", "build", "reset_launches",
            "g1_fold_madd", "g1_fold_madd_plain",
            "g1_fold_packed", "g1_fold_packed_plain",
            "g1_suffix_weighted", "g1_suffix_weighted_plain",
-           "g1_sqrt", "g1_sqrt_plain"]
+           "g1_sqrt", "g1_sqrt_plain", "g1_fold_rows", "g1_fold_rows_plain",
+           "g1_add_rows", "g1_add_rows_plain", "source_of", "ptxas_usage"]
 
 KERNELS = ("fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted",
-           "g1_fold_packed", "g1_sqrt")
+           "g1_fold_packed", "g1_sqrt", "g1_fold_rows", "g1_add_rows")
+# the wrappers that launch another kernel's source (and its C entry)
+_SHARES_SOURCE = {"g1_add_rows": "g1_add"}
+SOURCES = tuple(k for k in KERNELS if k not in _SHARES_SOURCE)
 LAUNCHES = {k: 0 for k in KERNELS}
 _LAUNCHES_LOCK = threading.Lock()  # a stream's worker thread launches too
 
@@ -61,10 +70,11 @@ _I64 = ctypes.c_int64
 _ARGTYPES = {
     "fq_mul": [_P, _P, _P, _I64, _P],
     "g1_add": [_P] * 9 + [_I64, _P],
-    "g1_fold_madd": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64, _P, _P, _P, _P],
+    "g1_fold_madd": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64] + [_P] * 5,
     "g1_suffix_weighted": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
     "g1_fold_packed": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64, _P, _P, _P, _P],
     "g1_sqrt": [_P, _I64, _P, _P],
+    "g1_fold_rows": [_P, _P, _P, ctypes.c_int, _I64, _P, _P, _P, _P],
 }
 
 
@@ -77,6 +87,11 @@ def _sqrt_digits() -> tuple[int, ...]:
 
 
 SQRT_DIGITS = _sqrt_digits()
+
+
+def source_of(name: str) -> str:
+    """The `csrc/<source>.cu` (and C entry `cp_<source>`) a kernel launches."""
+    return _SHARES_SOURCE.get(name, name)
 
 
 def reset_launches() -> None:
@@ -141,7 +156,7 @@ def build(force: bool = False) -> dict[str, str]:
     reports: dict[str, str] = {}
     with open(BUILD_DIR / "build.lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
-        todo = [k for k in KERNELS if force or not _fresh(k)]
+        todo = [k for k in SOURCES if force or not _fresh(k)]
         nvcc = _nvcc() if todo else ""
         _write_constants()
         procs = {}
@@ -165,6 +180,24 @@ def build(force: bool = False) -> dict[str, str]:
     return reports
 
 
+def ptxas_usage(report: str, kernel: str) -> dict[str, int]:
+    """`registers` and `spill_bytes` (stores + loads) that ptxas -v reported
+    for the kernel entry whose name contains `kernel`."""
+    out, entry, props = {}, False, False
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            entry = kernel in line
+        elif "Function properties for" in line:
+            props = kernel in line
+        elif entry and re.search(r"Used \d+ registers", line):
+            out["registers"] = int(re.search(r"Used (\d+) registers",
+                                             line).group(1))
+        elif props and "spill" in line:
+            out["spill_bytes"] = sum(
+                int(v) for v in re.findall(r"(\d+) bytes spill", line))
+    return out
+
+
 @functools.cache
 def _lib(name: str):
     if not _fresh(name):
@@ -176,7 +209,7 @@ def _lib(name: str):
 
 
 def _launch(name: str, device: torch.device, *args) -> None:
-    fn = _lib(name)
+    fn = _lib(source_of(name))
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
@@ -277,11 +310,15 @@ def g1_fold_madd(ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
     Montgomery (see `g1_fold_madd_plain` for the function)."""
     if _on_cpu(ext_px, ext_py, ext_zb, plan):
         return g1_fold_madd_plain(ext_px, ext_py, ext_zb, plan)
-    return _fold_launch("g1_fold_madd", ext_px, ext_py, ext_zb, plan)
+    # [E, 24]: the kernel repacks the bases into it point-major first
+    pts = torch.empty((ext_px.shape[-1], L), dtype=torch.int32,
+                      device=plan.device)
+    return _fold_launch("g1_fold_madd", ext_px, ext_py, ext_zb, plan, pts)
 
 
-def _fold_launch(name, ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
-    """Launch either fold kernel (they share one interface)."""
+def _fold_launch(name, ext_px, ext_py, ext_zb, plan, *scratch) -> PointsXYZ:
+    """Launch either fold kernel (one interface; a kernel's scratch tensors
+    go between its sizes and its outputs)."""
     n_ext = ext_px.shape[1]
     if ext_px.shape != (L // 2, n_ext) or ext_py.shape != ext_px.shape \
             or ext_zb.shape != (n_ext,) or plan.ndim != 2:
@@ -294,7 +331,8 @@ def _fold_launch(name, ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
     if s_pad:
         _launch(name, plan.device,
                 *(t.data_ptr() for t in (ext_px, ext_py, ext_zb, plan)),
-                n_ext, t_rows, s_pad, *(t.data_ptr() for t in outs))
+                n_ext, t_rows, s_pad,
+                *(t.data_ptr() for t in (*scratch, *outs)))
     return PointsXYZ(*outs)
 
 
@@ -400,3 +438,65 @@ def g1_sqrt(pxp: torch.Tensor) -> torch.Tensor:
     if n:
         _launch("g1_sqrt", pxp.device, pxp.data_ptr(), n, out.data_ptr())
     return out
+
+
+# --------------------------------------------------------------------------
+# g1_fold_rows
+# --------------------------------------------------------------------------
+
+def g1_fold_rows_plain(x, y, z) -> PointsXYZ:
+    """x, y, z: [24, T, S] projective rows -> [24, S] x3: column s starts at
+    infinity and complete-adds rows t = 0..T-1 in order, every row (z = 0
+    rows too), as the reference's `g1_fold_rows_pallas`."""
+    acc = g1_infinity64((x.shape[2],), x.device)
+    for t in range(x.shape[1]):
+        acc = g1_add64(acc, PointsXYZ(x[:, t].long(), y[:, t].long(),
+                                      z[:, t].long()))
+    return PointsXYZ(*(c.int() for c in acc))
+
+
+def g1_fold_rows(x, y, z) -> PointsXYZ:
+    """The fold of pre-gathered rows (see `g1_fold_rows_plain`); any T >= 1
+    and S >= 1."""
+    if _on_cpu(x, y, z):
+        return g1_fold_rows_plain(x, y, z)
+    if x.ndim != 3 or x.shape[0] != L or x.shape[1] < 1 \
+            or y.shape != x.shape or z.shape != x.shape:
+        raise ValueError("fold_rows takes three [24, T, S] limb tensors, "
+                         "T >= 1")
+    x, y, z = (t.contiguous() for t in (x, y, z))
+    t_rows, s = x.shape[1], x.shape[2]
+    outs = [torch.empty((L, s), dtype=torch.int32, device=x.device)
+            for _ in range(3)]
+    if s:
+        _launch("g1_fold_rows", x.device, *(t.data_ptr() for t in (x, y, z)),
+                t_rows, s, *(t.data_ptr() for t in outs))
+    return PointsXYZ(*outs)
+
+
+# --------------------------------------------------------------------------
+# g1_add_rows
+# --------------------------------------------------------------------------
+
+def g1_add_rows_plain(p: PointsXYZ, q: PointsXYZ) -> PointsXYZ:
+    """Batched complete add of [24, N] 3-tuples, as the reference's
+    `g1_add_pallas`."""
+    return g1_add_plain(p, q)
+
+
+def g1_add_rows(p: PointsXYZ, q: PointsXYZ) -> PointsXYZ:
+    """The reference's `g1_add_pallas`: six [24, N] limb tensors of one
+    shape, no broadcasting; launches g1_add.cu's kernel."""
+    if _on_cpu(*p, *q):
+        return g1_add_rows_plain(p, q)
+    shape = p[0].shape
+    if len(shape) != 2 or shape[0] != L \
+            or any(c.shape != shape for c in (*p, *q)):
+        raise ValueError("add_rows takes six [24, N] limb tensors of one "
+                         "shape")
+    ins = [c.contiguous() for c in (*p, *q)]
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    if shape[1]:
+        _launch("g1_add_rows", ins[0].device,
+                *(t.data_ptr() for t in (*ins, *outs)), shape[1])
+    return PointsXYZ(*outs)

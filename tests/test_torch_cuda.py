@@ -206,3 +206,99 @@ def test_stream_on_card(async_worker):
     stream.add(pts[900:], ss[900:])
     assert stream.result() == HostBackend().msm(pts, ss)
     assert stream.dispatches == 3
+
+
+def _adversarial_plan(n: int, t_rows: int, s: int, seed: int) -> torch.Tensor:
+    """A [T, S] fold plan over the extended bases [P | -P | inf] (n points,
+    sentinel 2n): live prefixes of random lengths, stray dead rows, and the
+    special slots the fold must get right."""
+    r = np.random.default_rng(seed)
+    plan = r.integers(0, 2 * n, size=(t_rows, s))
+    lengths = r.integers(0, t_rows + 1, size=s)
+    plan[np.arange(t_rows)[:, None] >= lengths[None, :]] = 2 * n
+    plan[r.random((t_rows, s)) < 0.05] = 2 * n    # dead rows inside a prefix
+    plan[:, 0] = 2 * n                            # an all-dead slot
+    plan[:, 1] = 5                                # one base T times: doubles
+    plan[:, 2] = 2 * n
+    plan[:2, 2] = [7, 7 + n]                      # P, then -P
+    plan[:, 3] = 9
+    plan[1::2, 3] = 9 + n                         # P, -P, P, -P, ...
+    return torch.from_numpy(plan.astype(np.int32))
+
+
+@pytest.mark.parametrize("t_rows", [8, 16])
+def test_fold_madd_kernel_on_adversarial_plans(t_rows):
+    """The redesigned fold (carry-chain core, bases repacked point-major)
+    against its plain version on plans made to break it: an all-dead slot,
+    a slot that gathers one base T times (the complete formula doubles),
+    P and -P in one slot and alternating down another, dead rows inside
+    live prefixes, and S = 300, not a multiple of the block's 128 slots."""
+    dev = _card()
+    rng = StdRng.seed_from_u64(12)
+    pts = [rng.rand_g1() for _ in range(200)] + [G1.infinity()]
+    bases = md.DeviceBases(pts, "cpu")
+    plan = _adversarial_plan(bases.n, t_rows, 300, seed=t_rows)
+    ext = (bases.ext_px, bases.ext_py, bases.ext_zb, plan)
+    before = kernels.LAUNCHES["g1_fold_madd"]
+    got = kernels.g1_fold_madd(*(t.to(dev) for t in ext))
+    assert kernels.LAUNCHES["g1_fold_madd"] == before + 1
+    want = kernels.g1_fold_madd_plain(*ext)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    pts_got = points_from_device(PointsXYZ(*(c.cpu() for c in got)))
+    assert pts_got[0] == G1.infinity()
+    assert pts_got[1] == pts[5].mul(t_rows)
+    assert pts_got[2] == G1.infinity()
+
+
+def _general_rows(n: int, seed: int) -> PointsXYZ:
+    """n points with a general z (complete sums of random pairs), on the
+    CPU, with z = 0 (dead) in every 7th lane and infinity in every 11th."""
+    rng = StdRng.seed_from_u64(seed)
+    a = points_to_device([rng.rand_g1() for _ in range(n)], "cpu")
+    b = points_to_device([rng.rand_g1() for _ in range(n)], "cpu")
+    p = kernels.g1_add_plain(a, b)
+    lane = torch.arange(n)
+    inf = points_to_device([G1.infinity()], "cpu")
+    x = torch.where((lane % 11 == 0)[None], inf.x, p.x)
+    y = torch.where((lane % 11 == 0)[None], inf.y, p.y)
+    z = torch.where((lane % 7 == 0)[None] | (lane % 11 == 0)[None], 0, p.z)
+    return PointsXYZ(x, y, z)
+
+
+@pytest.mark.parametrize("t_rows, s", [(8, 515), (1, 37)])
+def test_fold_rows_kernel_matches_plain(t_rows, s):
+    """g1_fold_rows on [24, T, S] rows with dead rows (z = 0), infinities,
+    P and -P in one column and one point repeated down another."""
+    dev = _card()
+    p = _general_rows(t_rows * s, seed=13 + t_rows)
+    rows = [c.reshape(FQ_LIMBS, t_rows, s).clone() for c in p]
+    if t_rows > 1:
+        neg = points_to_device([points_from_device(PointsXYZ(
+            *(c[:, 0, 1:2] for c in rows)))[0].neg()], "cpu")
+        for c, v in zip(rows, neg):
+            c[:, 1, 1] = v[:, 0]                 # column 1: P, then -P
+        for c in rows:
+            c[:, :, 2] = c[:, :1, 2]             # column 2: P repeated
+    before = kernels.LAUNCHES["g1_fold_rows"]
+    got = kernels.g1_fold_rows(*(c.to(dev) for c in rows))
+    assert kernels.LAUNCHES["g1_fold_rows"] == before + 1
+    want = kernels.g1_fold_rows_plain(*rows)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def test_add_rows_kernel_matches_plain():
+    dev = _card()
+    p = _general_rows(515, seed=15)
+    q = _general_rows(515, seed=16)
+    q = PointsXYZ(*(torch.cat([a[:, :5], b[:, 5:]], dim=1)
+                    for a, b in zip(p, q)))        # P + P in the first lanes
+    before = dict(kernels.LAUNCHES)
+    got = kernels.g1_add_rows(PointsXYZ(*(c.to(dev) for c in p)),
+                              PointsXYZ(*(c.to(dev) for c in q)))
+    assert kernels.LAUNCHES["g1_add_rows"] == before["g1_add_rows"] + 1
+    assert kernels.LAUNCHES["g1_add"] == before["g1_add"]
+    want = kernels.g1_add_rows_plain(p, q)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    with pytest.raises(ValueError):
+        kernels.g1_add_rows(PointsXYZ(*(c[:, :4].to(dev) for c in p)),
+                            PointsXYZ(*(c[:, :5].to(dev) for c in q)))

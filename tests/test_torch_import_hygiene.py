@@ -26,6 +26,7 @@ from curdleproofs_tpu_torch.ops.msm_device import DeviceMsmStream, msm_device
 from curdleproofs_tpu_torch.ops.msm_tune import load_table
 from curdleproofs_tpu_torch.parallel.batch_verify import plan_split_fraction
 from curdleproofs_tpu_torch.whisk import is_valid_whisk_shuffle_proofs
+from curdleproofs_tpu_torch.ops import kernels as K
 from curdleproofs_tpu_torch.host.rng import StdRng
 rng = StdRng.seed_from_u64(1)
 pts = [rng.rand_g1() for _ in range(9)]
@@ -36,6 +37,9 @@ with use_backend(TorchBackend(device="cpu")) as b:
     s.result()
     load_table("cpu")
     plan_split_fraction(device="cpu")
+from curdleproofs_tpu_torch.ops.g1_ops import g1_infinity
+K.g1_fold_rows(*g1_infinity((2, 3), "cpu"))
+K.g1_add_rows(g1_infinity((4,), "cpu"), g1_infinity((4,), "cpu"))
 bad = sorted(n for n in sys.modules
              if n == "curdleproofs_tpu" or n.startswith("curdleproofs_tpu."))
 print("LOADED", bad)
