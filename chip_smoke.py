@@ -7,12 +7,17 @@ Phases (any failure exits non-zero; nothing is caught):
 2. build the seven CUDA sources from `curdleproofs_tpu_torch/csrc/`, then
    hold each of the eight kernel wrappers against its plain PyTorch version
    on the card (array equality), timed with CUDA events: at the 626k MSM's
-   own shapes (both folds on its plan, the merge's g1_add over its slots,
-   the suffix kernel, fq_mul at leave-Montgomery's [24, W], g1_sqrt over
+   own shapes (both folds on its plan, the merge's g1_add over its slots and
+   its first scan step, the suffix kernel, the reduction's scan step over
+   W*G = 32,768 chunks, fq_mul at leave-Montgomery's [24, W], g1_sqrt over
    its 655,360 padded bases), g1_fold_rows on rows gathered from the first
    2^17 slots of that plan (z from the liveness bit, so dead rows have
-   z = 0), and fq_mul, g1_add and g1_add_rows at 2^16; the fold's ptxas
-   registers and spills go into its record; the 626k bases made resident
+   z = 0), fq_mul, g1_add and g1_add_rows at 2^16, g1_add at 32,768 lanes
+   (the 626k reduction's W*G) and 512 lanes (the protocol's c = 8 W*G),
+   and g1_sqrt at n = 128 (a protocol MSM's padded bases); the ptxas
+   registers and spills of the fold, g1_add and g1_sqrt go into their
+   records (g1_add's scan entry under `scan_registers`, `scan_spill_bytes`);
+   the 626k bases made resident
    compressed (x + parity, y from g1_sqrt) and uncompressed must be
    bit-identical, with each upload's wall time and bytes (after one untimed
    warm-up upload, three timed uploads each way, in turns);
@@ -136,14 +141,18 @@ def sqrt_mul32(digits) -> int:
 
 
 def event_ms(fn, reps: int):
-    """(result of the first run, mean device time of `fn` over `reps` runs;
-    with reps > 1 the first run is a warm-up and is not timed)."""
+    """(result of the first run, mean device time of `fn` over `reps` runs).
+    With reps > 1 neither the first run nor a second one is timed: the first
+    run's result is still held, so the second gives the caching allocator
+    free blocks of the outputs' sizes.  Otherwise the first timed run could
+    wait on cudaMalloc and count the card's idle time as the kernel's."""
     torch.cuda.synchronize()
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     out = fn()
     end.record()
     if reps > 1:
+        fn()
         start.record()
         for _ in range(reps):
             fn()
@@ -253,6 +262,14 @@ def main() -> int:
             f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
         return got
 
+    def with_ptxas(name, entry, prefix=""):
+        """ptxas' `registers` and `spill_bytes` of kernel `entry` into the
+        record of `name`."""
+        usage = K.ptxas_usage(reports[K.source_of(name)], entry)
+        if set(usage) != {"registers", "spill_bytes"}:
+            raise AssertionError(f"no ptxas report for {entry}: {usage}")
+        records[name].update({prefix + k: v for k, v in usage.items()})
+
     # The 626k bases made resident both ways: one untimed warm-up upload
     # (the process's first loads the kernels and warms the allocator), then
     # three timed each way in turns; bit-identical layouts, each upload's
@@ -320,10 +337,7 @@ def main() -> int:
         lambda: K.g1_fold_madd(*ext, sp.plan),
         lambda: K.g1_fold_madd_plain(*ext, sp.plan), 3,
         fold_bytes, live_rows * 11 * MUL32_PER_FQ_MUL))
-    usage = K.ptxas_usage(reports["g1_fold_madd"], "g1_fold_madd_kernel")
-    if set(usage) != {"registers", "spill_bytes"}:
-        raise AssertionError(f"no ptxas report for g1_fold_madd: {usage}")
-    records["g1_fold_madd"].update(usage)
+    with_ptxas("g1_fold_madd", "g1_fold_madd_kernel")
     # the full-add fold computes every row, dead ones too; its bound counts
     # the live rows' adds, the least work that gives the same sums
     check("g1_fold_packed", f"plan [{t_rows}, {s_pad}] over {e_cnt} bases",
@@ -345,19 +359,38 @@ def main() -> int:
     del rows, cols
 
     partner = torch.clamp(torch.arange(s_pad, device=dev) + 1, max=s_pad - 1)
-    nxt = md._take(acc, partner)
+    nxt = PointsXYZ(*(c[:, partner] for c in acc))
     check("g1_add", f"merge N = {s_pad}", lambda: K.g1_add(acc, nxt),
           lambda: K.g1_add_plain(acc, nxt), 5,
           9 * 96 * s_pad, s_pad * 12 * MUL32_PER_FQ_MUL)
+    with_ptxas("g1_add", "g1_add_kernel")
+    with_ptxas("g1_add", "g1_add_scan_kernel", "scan_")
+
+    def scan_check(shape, v, key, stride, reps):
+        """g1_add's scan entry: one merge or suffix round; its bound counts
+        the lanes whose partner holds the same key (the others copy)."""
+        n = key.shape[0]
+        live = int((key[stride:] == key[:n - stride]).sum()) \
+            if stride < n else 0
+        check("g1_add", f"{shape}, stride {stride} ({live} lanes add)",
+              lambda: K.g1_add_scan(v, key, stride),
+              lambda: K.g1_add_scan_plain(v, key, stride), reps,
+              (2 * 288 + 8) * n, live * 12 * MUL32_PER_FQ_MUL)
+
+    scan_check(f"scan step, merge N = {s_pad}", acc, sp.slot_gkey, 1, 5)
 
     g_chunks, cb = md._phase3_chunks(params.c, params.windows)
     wg = params.windows * g_chunks
     idx = torch.arange(cb * wg, device=dev) % s_pad
     dense = [c[:, idx].reshape(24, cb, wg) for c in acc]
-    check("g1_suffix_weighted", f"Cb = {cb}, WG = {wg}",
-          lambda: sum(K.g1_suffix_weighted(*dense), ()),
-          lambda: sum(K.g1_suffix_weighted_plain(*dense), ()), 5,
-          3 * 96 * cb * wg + 6 * 96 * wg, wg * cb * 2 * 12 * MUL32_PER_FQ_MUL)
+    tg = check("g1_suffix_weighted", f"Cb = {cb}, WG = {wg}",
+               lambda: sum(K.g1_suffix_weighted(*dense), ()),
+               lambda: sum(K.g1_suffix_weighted_plain(*dense), ()), 5,
+               3 * 96 * cb * wg + 6 * 96 * wg,
+               wg * cb * 2 * 12 * MUL32_PER_FQ_MUL)
+    wkey = torch.arange(wg, device=dev) // g_chunks
+    scan_check(f"scan step, reduction W*G = {wg} (G = {g_chunks})",
+               PointsXYZ(*tg[:3]), wkey, 1, 20)
 
     w = params.windows
     one_plain = FQ.plain_const(1, (1,), dev)
@@ -371,6 +404,11 @@ def main() -> int:
     check("g1_sqrt", f"n = {n_pad} (x of the 626k MSM's padded bases)",
           lambda: (K.g1_sqrt(pxp),), lambda: (K.g1_sqrt_plain(pxp),), 3,
           (48 + 96) * n_pad, n_pad * sqrt_mul32(K.SQRT_DIGITS))
+    with_ptxas("g1_sqrt", "g1_sqrt_kernel")
+    px128 = pxp[:, :128].contiguous()
+    check("g1_sqrt", "n = 128 (a protocol MSM's padded bases)",
+          lambda: (K.g1_sqrt(px128),), lambda: (K.g1_sqrt_plain(px128),), 50,
+          (48 + 96) * 128, 128 * sqrt_mul32(K.SQRT_DIGITS))
 
     # fq_mul and g1_add also at N = 2^16 lanes
     n16 = N_SMALL
@@ -386,7 +424,15 @@ def main() -> int:
     check("g1_add_rows", f"N = {n16}", lambda: K.g1_add_rows(pp, b),
           lambda: K.g1_add_rows_plain(pp, b),
           20, 9 * 96 * n16, n16 * 12 * MUL32_PER_FQ_MUL)
-    del pp, a, b, dense, sp, limbs, acc, nxt, wx, pxp, px
+    for nw, what in ((32_768, "the 626k reduction's W*G"),
+                     (512, "the protocol's c = 8 W*G")):
+        pw, bw = (PointsXYZ(*(c[:, :nw].contiguous() for c in v))
+                  for v in (pp, b))
+        check("g1_add", f"N = {nw} ({what})", lambda: K.g1_add(pw, bw),
+              lambda: K.g1_add_plain(pw, bw), 100, 9 * 96 * nw,
+              nw * 12 * MUL32_PER_FQ_MUL)
+    del pp, a, b, pw, bw, dense, tg, wkey, sp, limbs, acc, nxt, wx, pxp
+    del px128, px
 
     # -- phases 3 to 6: each path counted on its own ------------------------
     by_path = {}

@@ -1,6 +1,8 @@
-// BLS12-381 base field and the complete mixed add on carry chains, for the
-// Pippenger bucket fold (g1_fold_madd.cu is the only kernel that includes it;
-// the other kernels stay on bls12_381.cuh).
+// BLS12-381 base field and the complete adds (mixed and full) on carry
+// chains.  Included by g1_fold_madd.cu (the bucket fold), g1_add.cu (the
+// complete add and the scan step around it) and g1_sqrt.cuh (the square root
+// of compressed ingest); fq_mul, g1_fold_packed, g1_fold_rows and
+// g1_suffix_weighted stay on bls12_381.cuh.
 //
 // Same numbers as bls12_381.cuh: 12 x 32-bit limbs, little-endian, Montgomery
 // form with R = 2^384, every output canonical (< q).  Canonical Montgomery
@@ -31,8 +33,10 @@
 
 #ifdef __CUDACC__
 #define CC_HD __host__ __device__ __forceinline__
+#define CC_CONST __constant__  // tables every lane reads in the same step
 #else
 #define CC_HD inline
+#define CC_CONST
 #endif
 
 namespace cc {
@@ -369,6 +373,65 @@ CC_HD Proj g1_madd(const Proj& p, const Fq& x2, const Fq& y2) {
   r.x = fq_sub(fq_mul(t3, t1), fq_mul(t4, y3));
   r.y = fq_add(fq_mul(y3, t0), fq_mul(t1, z3));
   r.z = fq_add(fq_mul(z3, t4), fq_mul(t0, t3));
+  return r;
+}
+
+// Complete addition P + Q (RCB16 algorithm 7, a = 0): 12 field multiplies in
+// the sequence of the JAX package's `_k_g1_add` (and of bls12_381.cuh's
+// cp::g1_add), so the output is the same projective representative.  Any
+// canonical inputs, infinity (0 : y : 0) and the all-zero (0, 0, 0) rows of
+// the reference's padding included; t0, t1, t2, t3, t4 and x3 are six
+// independent products.
+CC_HD Proj g1_add(const Proj& p, const Proj& q) {
+  Fq t0 = fq_mul(p.x, q.x);
+  Fq t1 = fq_mul(p.y, q.y);
+  Fq t2 = fq_mul(p.z, q.z);
+  Fq t3 = fq_mul(fq_add(p.x, p.y), fq_add(q.x, q.y));
+  t3 = fq_sub(t3, fq_add(t0, t1));
+  Fq t4 = fq_mul(fq_add(p.y, p.z), fq_add(q.y, q.z));
+  t4 = fq_sub(t4, fq_add(t1, t2));
+  Fq x3 = fq_mul(fq_add(p.x, p.z), fq_add(q.x, q.z));
+  Fq y3 = fq_sub(x3, fq_add(t0, t2));
+  x3 = fq_add(t0, t0);
+  t0 = fq_add(x3, t0);
+  t2 = fq_mul_b3(t2);
+  Fq z3 = fq_add(t1, t2);
+  t1 = fq_sub(t1, t2);
+  y3 = fq_mul_b3(y3);
+  Proj r;
+  r.x = fq_sub(fq_mul(t3, t1), fq_mul(t4, y3));
+  r.y = fq_add(fq_mul(y3, t0), fq_mul(t1, z3));
+  r.z = fq_add(fq_mul(z3, t4), fq_mul(t0, t3));
+  return r;
+}
+
+// --- the reference layouts at a kernel's boundary ----------------------------
+//
+// A coordinate is 24 rows of 16-bit limbs ([24, stride], one lane per
+// column: neighbouring lanes read neighbouring words), a resident base
+// coordinate 12 rows of packed limb pairs ([12, stride]).
+
+CC_HD Fq load16(const uint32_t* rows, int64_t stride, int64_t lane) {
+  Fq r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i)
+    r.v[i] = rows[(2 * i) * stride + lane] |
+             (rows[(2 * i + 1) * stride + lane] << 16);
+  return r;
+}
+
+CC_HD void store16(uint32_t* rows, int64_t stride, int64_t lane, const Fq& a) {
+#pragma unroll
+  for (int i = 0; i < NL; ++i) {
+    rows[(2 * i) * stride + lane] = a.v[i] & 0xffffu;
+    rows[(2 * i + 1) * stride + lane] = a.v[i] >> 16;
+  }
+}
+
+CC_HD Fq load_pairs(const uint32_t* rows, int64_t stride, int64_t lane) {
+  Fq r;
+#pragma unroll
+  for (int i = 0; i < NL; ++i) r.v[i] = rows[i * stride + lane];
   return r;
 }
 

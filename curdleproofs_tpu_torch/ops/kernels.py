@@ -3,21 +3,26 @@ each its plain PyTorch version.
 
 Kernels (sources in `../csrc/`, one shared object each):
 - `fq_mul`             batched Montgomery product          (fq_mul.cu)
-- `g1_add`             complete projective add             (g1_add.cu)
-- `g1_fold_madd`       Pippenger bucket fold, mixed adds   (g1_fold_madd.cu,
-                       on the carry-chain core fq_cc.cuh)
+- `g1_add`             complete projective add, and one    (g1_add.cu)
+                       round of a masked suffix scan
+                       (`g1_add_scan`, its second entry)
+- `g1_fold_madd`       Pippenger bucket fold, mixed adds   (g1_fold_madd.cu)
 - `g1_suffix_weighted` bucket-reduction inner step         (g1_suffix_weighted.cu)
 - `g1_fold_packed`     Pippenger bucket fold, full adds    (g1_fold_packed.cu)
 - `g1_sqrt`            y from x, compressed base ingest    (g1_sqrt.cu)
 - `g1_fold_rows`       fold of gathered [24, T, S] rows    (g1_fold_rows.cu)
 - `g1_add_rows`        batched add on [24, N] 3-tuples     (launches g1_add.cu)
 
+g1_add.cu, g1_fold_madd.cu and g1_sqrt.cu run on the carry-chain field core
+`fq_cc.cuh`; the others on `bls12_381.cuh`.
+
 Each wrapper takes the reference layouts as int32 tensors (16-bit limbs
 `[24, ...]`, packed limb pairs `[12, ...]`; the kernels read them as
 uint32).  For a tensor on the CPU it runs the plain version; for a CUDA
 tensor it launches the kernel, or raises.  `LAUNCHES` counts kernel launches
 per wrapper, so a run can show its main path went through the kernels
-(`g1_add_rows` counts its own launches of g1_add.cu's entry).
+(`g1_add_rows` counts its own launches of g1_add.cu's entry; `g1_add_scan`
+counts under `g1_add`).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into `../_build/cuda/`
 at first use, one process per source, all started together (`build()`),
@@ -45,7 +50,9 @@ from .g1_ops import PointsXYZ, g1_add64, g1_infinity64, g1_madd64
 from .limbs import FQ_LIMBS as L
 
 __all__ = ["KERNELS", "LAUNCHES", "SQRT_DIGITS", "build", "reset_launches",
+           "write_constants",
            "fq_mul", "fq_mul_plain", "g1_add", "g1_add_plain",
+           "g1_add_scan", "g1_add_scan_plain",
            "g1_fold_madd", "g1_fold_madd_plain",
            "g1_fold_packed", "g1_fold_packed_plain",
            "g1_suffix_weighted", "g1_suffix_weighted_plain",
@@ -70,6 +77,7 @@ _I64 = ctypes.c_int64
 _ARGTYPES = {
     "fq_mul": [_P, _P, _P, _I64, _P],
     "g1_add": [_P] * 9 + [_I64, _P],
+    "g1_add_scan": [_P] * 4 + [_I64, _I64] + [_P] * 4,
     "g1_fold_madd": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64] + [_P] * 5,
     "g1_suffix_weighted": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
     "g1_fold_packed": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64, _P, _P, _P, _P],
@@ -131,20 +139,21 @@ def _u32s(x: int, n: int) -> str:
     return ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(n))
 
 
-def _write_constants() -> None:
-    """`sqrt_constants.h` for g1_sqrt.cuh, from the port's constants."""
+def write_constants(directory: pathlib.Path = BUILD_DIR) -> None:
+    """`sqrt_constants.h` for g1_sqrt.cuh, from the port's constants, into
+    `directory` (the build's include directory)."""
     digits = ", ".join(map(str, SQRT_DIGITS))
-    (BUILD_DIR / "sqrt_constants.h").write_text(f"""\
+    (directory / "sqrt_constants.h").write_text(f"""\
 // generated by curdleproofs_tpu_torch/ops/kernels.py; do not edit
 #pragma once
 #include <stdint.h>
-namespace cp {{
+namespace cc {{
 // b = {CURVE_B} in Montgomery form (R = 2^384), 12 x 32-bit limbs
-__constant__ const uint32_t B_MONT[12] = {{{_u32s(FQ.to_mont(CURVE_B), 12)}}};
+CC_CONST const uint32_t B_MONT[12] = {{{_u32s(FQ.to_mont(CURVE_B), 12)}}};
 // (q+1)/4 as two-bit digits, most significant first
 constexpr int SQRT_NDIGITS = {len(SQRT_DIGITS)};
-__constant__ const uint8_t SQRT_DIGITS[SQRT_NDIGITS] = {{{digits}}};
-}}  // namespace cp
+CC_CONST const uint8_t SQRT_DIGITS[SQRT_NDIGITS] = {{{digits}}};
+}}  // namespace cc
 """)
 
 
@@ -158,7 +167,7 @@ def build(force: bool = False) -> dict[str, str]:
         fcntl.flock(lock, fcntl.LOCK_EX)
         todo = [k for k in SOURCES if force or not _fresh(k)]
         nvcc = _nvcc() if todo else ""
-        _write_constants()
+        write_constants()
         procs = {}
         for k in todo:
             tmp = _so(k).with_suffix(f".so.{os.getpid()}.tmp")
@@ -199,17 +208,19 @@ def ptxas_usage(report: str, kernel: str) -> dict[str, int]:
 
 
 @functools.cache
-def _lib(name: str):
-    if not _fresh(name):
+def _lib(source: str, entry: str):
+    if not _fresh(source):
         build()
-    fn = getattr(ctypes.CDLL(str(_so(name))), f"cp_{name}")
-    fn.argtypes = _ARGTYPES[name]
+    fn = getattr(ctypes.CDLL(str(_so(source))), f"cp_{entry}")
+    fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(name: str, device: torch.device, *args) -> None:
-    fn = _lib(source_of(name))
+def _launch(name: str, device: torch.device, *args, entry=None) -> None:
+    """Launch C entry `cp_<entry>` (default: the kernel's own source's) of
+    the kernel's source and count it under `name`."""
+    fn = _lib(source_of(name), entry or source_of(name))
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
@@ -280,6 +291,39 @@ def g1_add(p: PointsXYZ, q: PointsXYZ) -> PointsXYZ:
         _launch("g1_add", ins[0].device,
                 *(t.data_ptr() for t in (*ins, *outs)), n)
     return PointsXYZ(*(o.reshape(L, *batch) for o in outs))
+
+
+def g1_add_scan_plain(v: PointsXYZ, key: torch.Tensor,
+                      stride: int) -> PointsXYZ:
+    """One round of a masked Hillis-Steele suffix scan over [24, n] points:
+    lane i adds lane i + stride where that lane exists and holds the same
+    key ([n] int64), and keeps its point elsewhere."""
+    n = key.shape[0]
+    idx = torch.arange(n, device=key.device)
+    partner = torch.clamp(idx + stride, max=n - 1)
+    mask = ((key[partner] == key) & (idx + stride < n))[None]
+    s = g1_add_plain(v, PointsXYZ(*(c[:, partner] for c in v)))
+    return PointsXYZ(*(torch.where(mask, a, b) for a, b in zip(s, v)))
+
+
+def g1_add_scan(v: PointsXYZ, key: torch.Tensor, stride: int) -> PointsXYZ:
+    """`g1_add_scan_plain` in one launch of g1_add.cu's scan entry, which
+    reads the partner by index, compares the keys on the card and writes out
+    of place; counted under `g1_add`."""
+    if _on_cpu(*v):
+        return g1_add_scan_plain(v, key, stride)
+    n = key.shape[0] if key.ndim == 1 else -1
+    if key.device != v.x.device or key.dtype != torch.int64 or n < 0 \
+            or any(c.shape != (L, n) for c in v) or stride < 1:
+        raise ValueError("scan step takes three [24, n] limb tensors, an "
+                         "[n] int64 key on their card and a stride >= 1")
+    ins = [c.contiguous() for c in v]
+    key = key.contiguous()
+    outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    if n:
+        _launch("g1_add", key.device, *(t.data_ptr() for t in (*ins, key)),
+                stride, n, *(o.data_ptr() for o in outs), entry="g1_add_scan")
+    return PointsXYZ(*outs)
 
 
 # --------------------------------------------------------------------------

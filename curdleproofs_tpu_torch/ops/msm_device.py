@@ -4,9 +4,10 @@ on the card.
 
 Stages per MSM (`_pipeline_core`): signed-digit recode, per-window bucket
 sort, slot plan, bucket fold (`g1_fold_madd` kernel, or `g1_fold_packed`
-with `madd=False`), slot merge (`g1_add` kernel), dense bucket
-layout, bucket reduction (`g1_suffix_weighted` kernel, then `g1_add` suffix
-scans and the x Cb doubling chain), and the leave-Montgomery multiply
+with `madd=False`), slot merge (`g1_add` kernel, one scan-step launch a
+round), dense bucket layout, bucket reduction (`g1_suffix_weighted` kernel,
+then `g1_add` suffix scans and the x Cb doubling chain), and the
+leave-Montgomery multiply
 (`fq_mul` kernel).  The host uploads the 32-byte scalars (bases stay
 resident, see `prepare_bases`; on the card they cross compressed and the
 `g1_sqrt` kernel rebuilds y), downloads W window sums, and finishes with a
@@ -39,7 +40,9 @@ from ..host.g1 import G1
 from .device import resolve_device
 from .field import FQ, pack_pairs, unpack_pairs
 from .g1_ops import PointsXYZ, g1_add, g1_infinity, points_to_device
-from .kernels import g1_fold_madd, g1_fold_packed, g1_sqrt, g1_suffix_weighted
+from .kernels import (
+    g1_add_scan, g1_fold_madd, g1_fold_packed, g1_sqrt, g1_suffix_weighted,
+)
 from .limbs import FQ_LIMBS
 
 __all__ = ["STREAM_LOGN", "DeviceBases", "DeviceMsmStream", "MsmParams",
@@ -389,12 +392,18 @@ def _slot_plan(digits: torch.Tensor, *, n: int, c: int, t_rows: int,
     return SlotPlan(key_s, slots_per_w, plan, slot_gkey, firstmap, kmax)
 
 
-def _take(v: PointsXYZ, idx: torch.Tensor) -> PointsXYZ:
-    return PointsXYZ(v.x[:, idx], v.y[:, idx], v.z[:, idx])
-
-
-def _where(mask: torch.Tensor, a: PointsXYZ, b: PointsXYZ) -> PointsXYZ:
-    return PointsXYZ(*(torch.where(mask, s, t) for s, t in zip(a, b)))
+def _suffix_scan(v: PointsXYZ, key: torch.Tensor, span: int) -> PointsXYZ:
+    """Masked Hillis-Steele suffix scan over [24, n] points in runs of equal
+    `key` ([n] int64, each key's lanes contiguous): rounds at strides 1, 2,
+    4, ... below `span`, each one `g1_add_scan` launch.  Afterwards lane i
+    holds the sum of its run's lanes from i on, for runs of at most `span`
+    lanes (the slot merge: a bucket's slots; the suffix over chunks: a
+    window's G chunks)."""
+    stride = 1
+    while stride < span:
+        v = g1_add_scan(v, key, stride)
+        stride *= 2
+    return v
 
 
 def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
@@ -420,13 +429,7 @@ def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
     mark("fold")
 
     # -- 9. merge slots of equal bucket (masked Hillis-Steele suffix scan) --
-    sidx = torch.arange(s_pad, device=dev)
-    stride = 1
-    while stride < sp.kmax:
-        partner = torch.clamp(sidx + stride, max=s_pad - 1)
-        same = (sp.slot_gkey[partner] == sp.slot_gkey) & (sidx + stride < s_pad)
-        acc = _where(same[None], g1_add(acc, _take(acc, partner)), acc)
-        stride *= 2
+    acc = _suffix_scan(acc, sp.slot_gkey, sp.kmax)
     mark("merge")
 
     # -- 10. dense buckets, laid out [24, Cb, W*G] for the reduction -------
@@ -448,25 +451,16 @@ def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
     mark("suffix")
 
     # Hillis-Steele suffix over chunks g within each window:
-    # U_g = sum_{h>=g} T_h
-    wgidx = torch.arange(wg, device=dev)
-    gpos = wgidx % g_chunks
-
-    def suffix_over_g(v: PointsXYZ) -> PointsXYZ:
-        stride = 1
-        while stride < g_chunks:
-            partner = torch.clamp(wgidx + stride, max=wg - 1)
-            mask = (gpos + stride < g_chunks)[None]
-            v = _where(mask, g1_add(v, _take(v, partner)), v)
-            stride *= 2
-        return v
+    # U_g = sum_{h>=g} T_h (a window's G chunks share the key w; lane
+    # g + stride is in the same window exactly when g + stride < G)
+    wkey = torch.arange(wg, device=dev) // g_chunks
 
     def at_g0(v: PointsXYZ) -> PointsXYZ:
         return PointsXYZ(*(a.reshape(-1, w_cnt, g_chunks)[..., 0] for a in v))
 
-    u = suffix_over_g(tg)
-    usum = at_g0(suffix_over_g(u))
-    lwsum = at_g0(suffix_over_g(lw))
+    u = _suffix_scan(tg, wkey, g_chunks)
+    usum = at_g0(_suffix_scan(u, wkey, g_chunks))
+    lwsum = at_g0(_suffix_scan(lw, wkey, g_chunks))
     u0 = at_g0(u)
     # sum_g g*T_g = sum_{g>=1} U_g = usum - u0 ; window = lwsum + Cb*(that)
     s2 = g1_add(usum, PointsXYZ(u0.x, FQ.neg(u0.y), u0.z))

@@ -302,3 +302,101 @@ def test_add_rows_kernel_matches_plain():
     with pytest.raises(ValueError):
         kernels.g1_add_rows(PointsXYZ(*(c[:, :4].to(dev) for c in p)),
                             PointsXYZ(*(c[:, :5].to(dev) for c in q)))
+
+
+def _adversarial_pairs(n: int) -> tuple[PointsXYZ, PointsXYZ]:
+    """[24, n] point pairs on the CPU, general z (tiled from 256 complete
+    sums, so wide batches stay cheap to make), with the complete add's
+    special cases in the first lanes: both at infinity, one at infinity
+    (either side), P = Q, P = -Q, and all-zero (0, 0, 0) rows."""
+    p = _general_rows(256, seed=17)
+    q = _general_rows(256, seed=18)
+    idx = torch.arange(n) % 256
+    p, q = (PointsXYZ(*(c[:, idx].clone() for c in v)) for v in (p, q))
+    inf = points_to_device([G1.infinity()], "cpu")
+    g = points_to_device([StdRng.seed_from_u64(19).rand_g1()], "cpu")
+    neg = points_to_device([points_from_device(g)[0].neg()], "cpu")
+    zero = PointsXYZ(*(torch.zeros_like(c) for c in inf))
+    cases = [(inf, inf), (inf, g), (g, inf), (g, g), (g, neg), (zero, g),
+             (g, zero), (zero, zero)]
+    for lane, (a, b) in enumerate(cases[:n]):
+        for c, v in zip((*p, *q), (*a, *b)):
+            c[:, lane] = v[:, 0]
+    return p, q
+
+
+@pytest.mark.parametrize("n", [1, 37, 512, 32_768 + 3])
+def test_g1_add_kernel_widths_and_special_points(n):
+    """The carry-chain g1_add against its plain version at ragged widths,
+    the special cases of the complete add in the first lanes."""
+    dev = _card()
+    p, q = _adversarial_pairs(n)
+    before = kernels.LAUNCHES["g1_add"]
+    got = kernels.g1_add(PointsXYZ(*(c.to(dev) for c in p)),
+                         PointsXYZ(*(c.to(dev) for c in q)))
+    assert kernels.LAUNCHES["g1_add"] == before + 1
+    want = kernels.g1_add_plain(p, q)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+
+def _scan_inputs(dev):
+    """The fold's output and slot keys of a real 3000-point c = 8 plan
+    (several slots a bucket), on the card."""
+    rng = StdRng.seed_from_u64(20)
+    base = [rng.rand_g1() for _ in range(256)]
+    pts = [base[i % 256] for i in range(3000)] + [G1.infinity()]
+    bases = md.DeviceBases(pts, dev)
+    ss = [rnd.randrange(R) for _ in range(len(pts))]
+    params = md.pick_params(bases.n, 8)
+    limbs = torch.from_numpy(md._scalars_to_limbs(ss, params.n)
+                             .astype(np.int32)).to(dev)
+    sp = md._slot_plan(md._signed_digits(limbs, params.n, 8), n=params.n,
+                       c=8, t_rows=params.t_rows, s_pad=params.s_pad)
+    acc = kernels.g1_fold_madd(bases.ext_px, bases.ext_py, bases.ext_zb,
+                               sp.plan)
+    return acc, sp
+
+
+def test_scan_step_kernel_on_a_slot_plan():
+    """g1_add's scan entry against its plain version, round by round, on a
+    real plan's merge (kmax > 1), counted under g1_add."""
+    dev = _card()
+    acc, sp = _scan_inputs(dev)
+    assert sp.kmax > 2
+    v, stride = acc, 1
+    while stride < sp.kmax:
+        before = kernels.LAUNCHES["g1_add"]
+        got = kernels.g1_add_scan(v, sp.slot_gkey, stride)
+        assert kernels.LAUNCHES["g1_add"] == before + 1
+        want = kernels.g1_add_scan_plain(v, sp.slot_gkey, stride)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        v, stride = got, stride * 2
+
+
+@pytest.mark.parametrize("stride", [1, 2, 64, 4099])
+def test_scan_step_kernel_on_alternating_keys(stride):
+    """Keys that alternate lane by lane (equal keys two lanes apart, never
+    next to each other), at a ragged width, with strides past the width."""
+    dev = _card()
+    p, _ = _adversarial_pairs(4099)
+    v = PointsXYZ(*(c.to(dev) for c in p))
+    key = (torch.arange(4099, device=dev) % 2).long()
+    got = kernels.g1_add_scan(v, key, stride)
+    want = kernels.g1_add_scan_plain(v, key, stride)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    if stride % 2:                       # odd strides: nothing merges
+        assert all(torch.equal(a, b) for a, b in zip(got, v))
+
+
+@pytest.mark.parametrize("n", [1, 64, 4099])
+def test_g1_sqrt_kernel_widths(n):
+    """The carry-chain sqrt chain against its plain version; lane 0 is the
+    identity's x = 0."""
+    dev = _card()
+    rng = StdRng.seed_from_u64(21)
+    pts = [G1.infinity()] + [rng.rand_g1() for _ in range(min(n, 256) - 1)]
+    pts = [pts[i % len(pts)] for i in range(n)]
+    px, _ = native.export_mont_x(pts, n)
+    pxp = md.u32_to_tensor(px, dev)
+    got = kernels.g1_sqrt(pxp)
+    assert torch.equal(got, kernels.g1_sqrt_plain(pxp))

@@ -1,5 +1,5 @@
-"""The carry-chain field core of the bucket fold (`csrc/fq_cc.cuh`), through
-its portable C twin, on the CPU.
+"""The carry-chain field core (`csrc/fq_cc.cuh`) of the bucket fold, the
+complete add and the square root, through its portable C twin, on the CPU.
 
 The header compiles its PTX primitives only for the card; any other compiler
 gets the twin: the same chains with the carry flag kept in a variable.  A
@@ -9,7 +9,14 @@ small harness over the header is built here with g++ and checked:
   edge values 0, 1, q - 1 and R mod q;
 - the mixed add `cc::g1_madd` against the port's `g1_madd64` (the plain
   version the fold kernel is held to) on the same points, including P at
-  infinity, P = Q and P = -Q.
+  infinity, P = Q and P = -Q;
+- the complete add `cc::g1_add` against `g1_add64` (the plain version of
+  the g1_add kernel) with both points in general projective form: both at
+  infinity, one at infinity, P = Q, P = -Q and the all-zero (0, 0, 0) rows
+  of the reference's padding;
+- the square-root chain of `csrc/g1_sqrt.cuh` (with the generated
+  `sqrt_constants.h`) against `g1_sqrt_plain`, on the x of seeded points,
+  the identity lane's x = 0 and x that are no curve point's.
 
 Tolerance: exact (canonical residues, array equality).  The PTX path itself
 is held only on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
@@ -26,7 +33,8 @@ import torch
 from curdleproofs_tpu_torch.constants import Q
 from curdleproofs_tpu_torch.host.g1 import G1, GENERATOR
 from curdleproofs_tpu_torch.ops.field import FQ
-from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ, g1_madd64
+from curdleproofs_tpu_torch.ops import kernels as K
+from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ, g1_add64, g1_madd64
 from curdleproofs_tpu_torch.ops.limbs import FQ_LIMBS, ints_to_limbs
 
 torch.set_num_threads(1)
@@ -37,6 +45,7 @@ R_MOD_Q = (1 << 384) % Q
 
 _HARNESS = r"""
 #include "fq_cc.cuh"
+#include "g1_sqrt.cuh"
 
 static cc::Fq get(const uint32_t* p) {
   cc::Fq r;
@@ -67,6 +76,25 @@ extern "C" void cc_madd(const uint32_t* p, const uint32_t* q, uint32_t* out,
     put(out + 36 * k + 24, r.z);
   }
 }
+
+extern "C" void cc_add(const uint32_t* p, const uint32_t* q, uint32_t* out,
+                       long n) {
+  for (long k = 0; k < n; ++k) {
+    const uint32_t* pk = p + 36 * k;
+    const uint32_t* qk = q + 36 * k;
+    cc::Proj a{get(pk), get(pk + 12), get(pk + 24)};
+    cc::Proj b{get(qk), get(qk + 12), get(qk + 24)};
+    cc::Proj r = cc::g1_add(a, b);
+    put(out + 36 * k, r.x);
+    put(out + 36 * k + 12, r.y);
+    put(out + 36 * k + 24, r.z);
+  }
+}
+
+extern "C" void cc_sqrt(const uint32_t* x, uint32_t* out, long n) {
+  for (long k = 0; k < n; ++k)
+    put(out + 12 * k, cc::sqrt_candidate(get(x + 12 * k)));
+}
 """
 
 
@@ -78,15 +106,19 @@ def lib(tmp_path_factory):
     d = tmp_path_factory.mktemp("fq_cc")
     src = d / "harness.cpp"
     src.write_text(_HARNESS)
+    K.write_constants(d)                 # sqrt_constants.h for g1_sqrt.cuh
     so = d / "libharness.so"
     subprocess.run([gxx, "-std=c++17", "-O2", "-Wall", "-Wextra", "-Werror",
                     "-Wno-unknown-pragmas", "-fno-omit-frame-pointer",
-                    "-shared", "-fPIC", "-I", str(CSRC), "-o", str(so),
+                    "-shared", "-fPIC", "-I", str(CSRC), "-I", str(d),
+                    "-o", str(so),
                     str(src)], check=True, capture_output=True, text=True)
     h = ctypes.CDLL(str(so))
     p = ctypes.c_void_p
     h.cc_field.argtypes = [ctypes.c_int, p, p, p, ctypes.c_long]
     h.cc_madd.argtypes = [p, p, p, ctypes.c_long]
+    h.cc_add.argtypes = [p, p, p, ctypes.c_long]
+    h.cc_sqrt.argtypes = [p, p, ctypes.c_long]
     return h
 
 
@@ -169,3 +201,53 @@ def test_mixed_add_matches_plain_version(lib):
                      _limbs16(qx), _limbs16(qy))
     for j, w in enumerate(want):
         assert _ints(out[:, j]) == _ints16(w)
+
+
+def _projective(points, lam) -> list[list[int]]:
+    """Host points -> [x, y, z] Montgomery ints in the representative
+    (l x : l y : l z); infinity is (0 : l : 0), None an all-zero row."""
+    cols = [(0, 0, 0) if p is None else (0, 1, 0) if p.is_infinity()
+            else (*p.to_affine(), 1) for p in points]
+    return [[FQ.to_mont(c * l % Q) for c, l in zip(col, lam)]
+            for col in zip(*cols)]
+
+
+def test_complete_add_matches_plain_version(lib):
+    r = np.random.default_rng(6)
+    g = GENERATOR
+    ps = [g.mul(int(k)) for k in r.integers(1, 2**62, size=30)]
+    qs = [g.mul(int(k)) for k in r.integers(1, 2**62, size=30)]
+    inf = G1.infinity()
+    ps += [inf, inf, ps[0], ps[1], ps[2], None, None, ps[3]]
+    qs += [inf, qs[0], inf, ps[1], ps[2].neg(), None, qs[1], None]
+    n = len(ps)
+    lp, lq = ([int(v) for v in r.integers(1, 2**63, size=n)] for _ in "pq")
+    p_cols, q_cols = _projective(ps, lp), _projective(qs, lq)
+    p_in, q_in = (np.ascontiguousarray(np.stack([_words(c) for c in cols],
+                                                axis=1))
+                  for cols in (p_cols, q_cols))
+    out = np.zeros_like(p_in)
+    lib.cc_add(_ptr(p_in), _ptr(q_in), _ptr(out), n)
+    want = g1_add64(PointsXYZ(*map(_limbs16, p_cols)),
+                    PointsXYZ(*map(_limbs16, q_cols)))
+    for j, w in enumerate(want):
+        assert _ints(out[:, j]) == _ints16(w)
+
+
+def test_sqrt_chain_matches_plain_version(lib):
+    r = np.random.default_rng(8)
+    xs = [GENERATOR.mul(int(k)).to_affine()[0]
+          for k in r.integers(1, 2**62, size=24)]
+    xs += [0, 1, Q - 1]                  # the identity lane's x, no-points
+    xs += [int(v) % Q for v in r.integers(0, 2**63, size=5)]
+    xm = [FQ.to_mont(x) for x in xs]
+    words = _words(xm)
+    out = np.zeros_like(words)
+    lib.cc_sqrt(_ptr(words), _ptr(out), len(xm))
+    pxp = torch.from_numpy(np.ascontiguousarray(words.T).view(np.int32))
+    want = K.g1_sqrt_plain(pxp)
+    assert _ints(out) == _ints16(want.long() & 0xFFFF)
+    # a point's x gives its y up to sign
+    for x, y in zip(xs[:24], _ints(out)):
+        yy = FQ.from_mont(y)
+        assert yy * yy % Q == (x ** 3 + 4) % Q
