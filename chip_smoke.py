@@ -5,30 +5,40 @@
 Phases (any failure exits non-zero; nothing is caught):
 1. the card: name and power limit as nvidia-smi reports them;
 2. build the seven CUDA sources from `curdleproofs_tpu_torch/csrc/`, then
-   hold each of the eight kernel wrappers against its plain PyTorch version
+   hold each of the nine kernel wrappers against its plain PyTorch version
    on the card (array equality), timed with CUDA events: at the 626k MSM's
    own shapes (both folds on its plan, the merge's g1_add over its slots and
-   its first scan step, the suffix kernel, the reduction's scan step over
-   W*G = 32,768 chunks, fq_mul at leave-Montgomery's [24, W], g1_sqrt over
-   its 655,360 padded bases), g1_fold_rows on rows gathered from the first
-   2^17 slots of that plan (z from the liveness bit, so dead rows have
-   z = 0), fq_mul, g1_add and g1_add_rows at 2^16, g1_add at 32,768 lanes
-   (the 626k reduction's W*G) and 512 lanes (the protocol's c = 8 W*G),
-   and g1_sqrt at n = 128 (a protocol MSM's padded bases); the ptxas
-   registers and spills of the fold, g1_add and g1_sqrt go into their
-   records (g1_add's scan entry under `scan_registers`, `scan_spill_bytes`);
-   the 626k bases made resident
+   its first scan step, the suffix kernel's chain entry, the reduction's
+   scan step over W*G = 32,768 chunks, fq_mul at leave-Montgomery's
+   [24, 3W], g1_sqrt over its 655,360 padded bases), g1_fold_rows on rows
+   gathered from the first 2^17 slots of that plan (z from the liveness
+   bit, so dead rows have z = 0), at the protocol's shapes from a real
+   c = 8 plan (both entries of the suffix kernel at Cb = 8, WG = 512, the
+   tree against `g1_suffix_weighted_tree_plain`, then timed against each
+   other in turns; fq_mul at leave-Montgomery's [24, 3W = 96]), fq_mul,
+   g1_add and g1_add_rows at 2^16, g1_add at 32,768 lanes (the 626k
+   reduction's W*G) and 512 lanes (the protocol's c = 8 W*G), and g1_sqrt
+   at n = 128 (a protocol MSM's padded bases).  The two suffix entries and
+   fq_mul also carry `kernel_ms`, their device time without host gaps
+   (`kernel_probe.graph_ms`: launches captured in a CUDA graph).  The ptxas
+   registers and spills of fq_mul, the fold, g1_add, both suffix entries
+   and g1_sqrt go into their records (g1_add's scan entry under
+   `scan_registers`, `scan_spill_bytes`; the tree entry at Cb = 16 under
+   `cb16_`); the 626k bases made resident
    compressed (x + parity, y from g1_sqrt) and uncompressed must be
    bit-identical, with each upload's wall time and bytes (after one untimed
    warm-up upload, three timed uploads each way, in turns);
 3. the MSM at real size: `msm_device` at n = 2^16 (c = 8) and n = 626,000
    (c = 16, batch verification's deduped MSM at B = 1024, l = 252), each
    equal to the native host MSM, with per-stage device times and peak
-   memory; then the 2^16 MSM again with the full-add fold
+   memory, and one fq_mul launch (leave-Montgomery; the bases were made
+   resident before); then the 2^16 MSM again with the full-add fold
    (`madd=False`, the path of g1_fold_packed);
 4. the protocol on `TorchBackend()`: the Whisk shuffle proof at l = 124 from
    `StdRng.seed_from_u64(0)` must equal the golden 4496-byte vector, verify,
    and fail with a tampered post-tracker; then prove and verify at l = 252;
+   fq_mul launches once a device MSM (leave-Montgomery) and once an upload
+   (the compressed ingest's parity product, one a g1_sqrt launch);
 5. Whisk chain sync: 64 consecutive l = 124 shuffle blocks (made on the
    host backend) through `is_valid_whisk_shuffle_proofs` on the card:
    accepted; with one corrupted proof byte rejected, and `identify=True`
@@ -48,9 +58,10 @@ chain and the batch verification.  Each path must launch every kernel
 in the JAX package either): they are held against their plain versions in
 phase 2 and launch on no path.  The kernels' JSON record, on the line
 before the last, carries each kernel's counts on its own main path under
-`launches` (the protocol run; for g1_fold_packed the full-add MSM; named
-in `launches_path`) and every path's under `launches_by_path`; the last
-line is the device record.
+`launches` (the protocol run; for g1_fold_packed the full-add MSM, for the
+suffix kernel's chain entry the 626k MSM, whose c = 16 reduction is the
+only one it serves; named in `launches_path`) and every path's under
+`launches_by_path`; the last line is the device record.
 """
 
 from __future__ import annotations
@@ -86,6 +97,7 @@ REPLACES = {
     "g1_add": "curdleproofs_tpu/ops/pallas_kernels.py:282",
     "g1_fold_madd": "curdleproofs_tpu/ops/pallas_kernels.py:446",
     "g1_suffix_weighted": "curdleproofs_tpu/ops/pallas_kernels.py:505",
+    "g1_suffix_weighted_tree": "curdleproofs_tpu/ops/pallas_kernels.py:505",
     "g1_fold_packed": "curdleproofs_tpu/ops/pallas_kernels.py:439",
     "g1_sqrt": "curdleproofs_tpu/ops/pallas_kernels.py:201",
     "g1_fold_rows": "curdleproofs_tpu/ops/pallas_kernels.py:453",
@@ -93,18 +105,24 @@ REPLACES = {
 }
 NO_CALLER = {"g1_fold_rows", "g1_add_rows"}
 FOLD_ROWS_S = 1 << 17       # g1_fold_rows: the first 2^17 slots of the plan
-_MSM = {"fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted"}
+BIG_PATH = f"msm n={N_BIG}"
+# the suffix kernel's entries: the tree serves the c = 8 reduction (WG =
+# 512), the chain the c = 16 one (WG = 32,768)
+_MSM8 = {"fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted_tree"}
+_MSM16 = {"fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted"}
 # the kernels each driven path must launch: g1_sqrt wherever the counted
 # window uploads fresh bases (the direct MSMs' bases are resident before
-# their windows open)
+# their windows open); every MSM below 2^19 points runs c = 8
 EXPECTED = {
-    f"msm n={N_SMALL}": _MSM,
-    f"msm n={N_BIG}": _MSM,
-    FULL_ADD_PATH: _MSM - {"g1_fold_madd"} | {"g1_fold_packed"},
-    MAIN_PATH: _MSM | {"g1_sqrt"},
-    CHAIN_PATH: _MSM | {"g1_sqrt"},
-    BATCH_PATH: _MSM | {"g1_sqrt"},
+    f"msm n={N_SMALL}": _MSM8,
+    BIG_PATH: _MSM16,
+    FULL_ADD_PATH: _MSM8 - {"g1_fold_madd"} | {"g1_fold_packed"},
+    MAIN_PATH: _MSM8 | {"g1_sqrt"},
+    CHAIN_PATH: _MSM8 | {"g1_sqrt"},
+    BATCH_PATH: _MSM8 | {"g1_sqrt"},
 }
+# each kernel's own main path, where it is not the protocol run
+OWN_PATH = {"g1_fold_packed": FULL_ADD_PATH, "g1_suffix_weighted": BIG_PATH}
 
 
 def log(*a):
@@ -197,6 +215,7 @@ def main() -> int:
     from curdleproofs_tpu_torch.ops.field import FQ, unpack_pairs
     from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ, points_to_device
     from curdleproofs_tpu_torch.parallel import batch_verify as bv
+    from curdleproofs_tpu_torch.tools.kernel_probe import graph_ms
     from curdleproofs_tpu_torch.util import (
         generate_blinders, get_permutation, msm,
         shuffle_permute_and_commit_input,
@@ -236,10 +255,11 @@ def main() -> int:
 
     records = {}
 
-    def check(name, shape, kernel, plain, reps, nbytes, nmul):
-        """Hold `kernel` against `plain` (array equality) and time both;
-        the first check of a kernel fills its record, later ones (other
-        shapes of the same kernel) go under its `more_shapes`."""
+    def check(name, shape, kernel, plain, reps, nbytes, nmul, graph=False):
+        """Hold `kernel` against `plain` (array equality) and time both
+        (`graph`: also the kernel's device time without host gaps); the
+        first check of a kernel fills its record, later ones (other shapes
+        of the same kernel) go under its `more_shapes`."""
         got, ms = event_ms(kernel, reps)
         want, plain_ms = event_ms(plain, 1)
         err = max_abs_err(got, want)
@@ -249,6 +269,8 @@ def main() -> int:
         b_ms, b_by = bound(nbytes, nmul)
         at = {"shape": shape, "match": True, "max_abs_err": err, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        if graph:
+            at["kernel_ms"] = graph_ms(kernel)
         if name in records:
             records[name]["more_shapes"].append(at)
         else:
@@ -258,8 +280,9 @@ def main() -> int:
                           f"{K.source_of(name)}.cu",
                 "replaces": REPLACES[name], **at, "library_ms": None,
                 "more_shapes": []}
-        log(f"kernel {name} at {shape}: equal to plain; {ms:.4f} ms (plain "
-            f"{plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
+        log(f"kernel {name} at {shape}: equal to plain; {ms:.4f} ms "
+            + (f"(kernel {at['kernel_ms']:.4f} ms) " if graph else "")
+            + f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
         return got
 
     def with_ptxas(name, entry, prefix=""):
@@ -379,26 +402,73 @@ def main() -> int:
 
     scan_check(f"scan step, merge N = {s_pad}", acc, sp.slot_gkey, 1, 5)
 
+    def suffix_cost(cb, wg):
+        """bytes and 32-bit multiplies of the suffix function at (Cb, WG):
+        the chain's 2 Cb complete adds a lane, whichever entry runs"""
+        return 3 * 96 * cb * wg + 6 * 96 * wg, wg * cb * 2 * 12 * \
+            MUL32_PER_FQ_MUL
+
     g_chunks, cb = md._phase3_chunks(params.c, params.windows)
     wg = params.windows * g_chunks
     idx = torch.arange(cb * wg, device=dev) % s_pad
     dense = [c[:, idx].reshape(24, cb, wg) for c in acc]
-    tg = check("g1_suffix_weighted", f"Cb = {cb}, WG = {wg}",
-               lambda: sum(K.g1_suffix_weighted(*dense), ()),
+    tg = check("g1_suffix_weighted", f"Cb = {cb}, WG = {wg} (chain entry)",
+               lambda: sum(K.g1_suffix_weighted(*dense, tree=False), ()),
                lambda: sum(K.g1_suffix_weighted_plain(*dense), ()), 5,
-               3 * 96 * cb * wg + 6 * 96 * wg,
-               wg * cb * 2 * 12 * MUL32_PER_FQ_MUL)
+               *suffix_cost(cb, wg))
+    with_ptxas("g1_suffix_weighted", "g1_suffix_weighted_kernel")
     wkey = torch.arange(wg, device=dev) // g_chunks
     scan_check(f"scan step, reduction W*G = {wg} (G = {g_chunks})",
                PointsXYZ(*tg[:3]), wkey, 1, 20)
 
-    w = params.windows
+    # The protocol's shapes, from a real c = 8 plan (a 256-point MSM:
+    # fold, merge and dense buckets as the pipeline makes them): both
+    # suffix entries at its [24, 8, 512], then timed in turns; fq_mul at
+    # its leave-Montgomery [24, 3W]
+    p8 = md.pick_params(256)
+    b8 = md.DeviceBases(tiled(256, 11), dev)
+    l8 = torch.from_numpy(md._scalars_to_limbs(
+        [rnd.randrange(R) for _ in range(256)], p8.n).astype(np.int32)).to(dev)
+    sp8 = md._slot_plan(md._signed_digits(l8, p8.n, p8.c), n=p8.n, c=p8.c,
+                        t_rows=p8.t_rows, s_pad=p8.s_pad)
+    acc8 = md._suffix_scan(K.g1_fold_madd(b8.ext_px, b8.ext_py, b8.ext_zb,
+                                          sp8.plan), sp8.slot_gkey, sp8.kmax)
+    d8 = md._dense_buckets(acc8, sp8.firstmap, p8.c, p8.windows)
+    cb8, wg8 = d8.x.shape[1:]
+    shape8 = f"Cb = {cb8}, WG = {wg8} (c = 8 plan of 256 points)"
+    check("g1_suffix_weighted", shape8 + ", chain entry",
+          lambda: sum(K.g1_suffix_weighted(*d8, tree=False), ()),
+          lambda: sum(K.g1_suffix_weighted_plain(*d8), ()), 20,
+          *suffix_cost(cb8, wg8), graph=True)
+    check("g1_suffix_weighted_tree", shape8,
+          lambda: sum(K.g1_suffix_weighted_tree(*d8), ()),
+          lambda: sum(K.g1_suffix_weighted_tree_plain(*d8), ()), 20,
+          *suffix_cost(cb8, wg8), graph=True)
+    with_ptxas("g1_suffix_weighted_tree", "g1_suffix_tree_kernelILi8E")
+    with_ptxas("g1_suffix_weighted_tree", "g1_suffix_tree_kernelILi16E",
+               "cb16_")
+    turns = {"chain": [], "tree": []}
+    for entry in ("chain", "tree", "tree", "chain"):
+        turns[entry].append(graph_ms(
+            lambda: K.g1_suffix_weighted(*d8, tree=entry == "tree")))
+    gain = 1 - sum(turns["tree"]) / sum(turns["chain"])
+    records["g1_suffix_weighted_tree"]["against_chain"] = {
+        "shape": shape8, "turns": "chain, tree, tree, chain",
+        "chain_kernel_ms": turns["chain"], "tree_kernel_ms": turns["tree"],
+        "tree_gain": gain, "routed_to_tree": K.suffix_uses_tree(cb8, wg8)}
+    log(f"suffix entries at {shape8}, in turns: chain {turns['chain']} ms, "
+        f"tree {turns['tree']} ms: the tree {100 * gain:.1f}% faster")
+
     one_plain = FQ.plain_const(1, (1,), dev)
-    wx = acc.x[:, :w]
-    check("fq_mul", f"leave-Montgomery [24, {w}] x [24, 1]",
-          lambda: (K.fq_mul(wx, one_plain),),
-          lambda: (K.fq_mul_plain(wx, one_plain),),
-          50, 2 * 96 * w + 96, w * MUL32_PER_FQ_MUL)
+    for v, w, what in ((acc8, p8.windows, "the protocol's"),
+                       (acc, params.windows, "the 626k MSM's")):
+        lm = torch.cat([c[:, :w] for c in v], dim=1)
+        check("fq_mul", f"leave-Montgomery [24, 3W = {3 * w}] x [24, 1] "
+              f"({what})", lambda: (K.fq_mul(lm, one_plain),),
+              lambda: (K.fq_mul_plain(lm, one_plain),),
+              50, 2 * 96 * 3 * w + 96, 3 * w * MUL32_PER_FQ_MUL, graph=True)
+    with_ptxas("fq_mul", "fq_mul_kernel")
+    del b8, l8, sp8, acc8, d8, lm
 
     pxp = md.u32_to_tensor(px, dev)
     check("g1_sqrt", f"n = {n_pad} (x of the 626k MSM's padded bases)",
@@ -417,7 +487,7 @@ def main() -> int:
     pp = K.g1_add_plain(a, b)     # general z, as the merge and scans see
     check("fq_mul", f"N = {n16}", lambda: (K.fq_mul(pp.x, pp.y),),
           lambda: (K.fq_mul_plain(pp.x, pp.y),),
-          50, 3 * 96 * n16, n16 * MUL32_PER_FQ_MUL)
+          50, 3 * 96 * n16, n16 * MUL32_PER_FQ_MUL, graph=True)
     check("g1_add", f"N = {n16}", lambda: K.g1_add(pp, b),
           lambda: K.g1_add_plain(pp, b),
           20, 9 * 96 * n16, n16 * 12 * MUL32_PER_FQ_MUL)
@@ -431,7 +501,7 @@ def main() -> int:
         check("g1_add", f"N = {nw} ({what})", lambda: K.g1_add(pw, bw),
               lambda: K.g1_add_plain(pw, bw), 100, 9 * 96 * nw,
               nw * 12 * MUL32_PER_FQ_MUL)
-    del pp, a, b, pw, bw, dense, tg, wkey, sp, limbs, acc, nxt, wx, pxp
+    del pp, a, b, pw, bw, dense, tg, wkey, sp, limbs, acc, nxt, pxp
     del px128, px
 
     # -- phases 3 to 6: each path counted on its own ------------------------
@@ -456,7 +526,7 @@ def main() -> int:
     small_bases = md.DeviceBases(small_pts, dev)
     for path, pts, ss, bases, madd in (
             (f"msm n={n16}", small_pts, small_ss, small_bases, True),
-            (f"msm n={N_BIG}", big_pts, big_ss, big_bases, True),
+            (BIG_PATH, big_pts, big_ss, big_bases, True),
             (FULL_ADD_PATH, small_pts, small_ss, small_bases, False)):
         n = len(pts)
         marks = []
@@ -476,6 +546,9 @@ def main() -> int:
         counted(path)
         if not madd and by_path[path]["g1_fold_madd"]:
             raise AssertionError("madd=False still ran the madd fold")
+        if by_path[path]["fq_mul"] != 1:
+            raise AssertionError(f"{path}: leave-Montgomery took "
+                                 f"{by_path[path]['fq_mul']} fq_mul launches")
         peak = torch.cuda.max_memory_allocated() / 2**30
         t0 = time.perf_counter()
         want = host.msm(pts, ss)
@@ -534,6 +607,11 @@ def main() -> int:
     log(f"msm engines on {MAIN_PATH}: {json.dumps(backend.engine_counts)}")
     if backend.engine_counts["device"] == 0:
         raise AssertionError("no MSM reached the device")
+    want_mul = backend.engine_counts["device"] + by_path[MAIN_PATH]["g1_sqrt"]
+    if by_path[MAIN_PATH]["fq_mul"] != want_mul:
+        raise AssertionError(f"{MAIN_PATH}: {by_path[MAIN_PATH]['fq_mul']} "
+                             f"fq_mul launches, not one a device MSM and one "
+                             f"an upload ({want_mul})")
 
     # -- phase 5: Whisk chain sync -------------------------------------------
     rng = StdRng.seed_from_u64(64)
@@ -645,7 +723,7 @@ def main() -> int:
         log(f"  stream dispatch {i}: stages ms {json.dumps(st)}")
 
     for name, rec in records.items():
-        path = FULL_ADD_PATH if name == "g1_fold_packed" else MAIN_PATH
+        path = OWN_PATH.get(name, MAIN_PATH)
         rec["launches"] = by_path[path][name]
         rec["launches_path"] = ("kernel check only (no caller in the JAX "
                                 "package)") if name in NO_CALLER else path

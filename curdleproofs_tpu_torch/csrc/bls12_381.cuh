@@ -1,4 +1,6 @@
-// BLS12-381 base field and G1 arithmetic for the Hopper kernels.
+// BLS12-381 base field and G1 arithmetic of the first Hopper kernels, now
+// serving only g1_fold_packed.cu and g1_fold_rows.cu (the other kernels run
+// on the carry-chain core fq_cc.cuh).
 //
 // One thread owns one field element (or point) at a time.  A field element is
 // 12 x 32-bit limbs (little-endian) in Montgomery form with R = 2^384: the
@@ -164,29 +166,6 @@ CP_DEV Proj g1_add(const Proj& p, const Proj& q) {
   x3 = fq_add(t0, t0);
   t0 = fq_add(x3, t0);
   t2 = fq_mul_b3(t2);
-  Fq z3 = fq_add(t1, t2);
-  t1 = fq_sub(t1, t2);
-  y3 = fq_mul_b3(y3);
-  Proj r;
-  r.x = fq_sub(fq_mul(t3, t1), fq_mul(t4, y3));
-  r.y = fq_add(fq_mul(y3, t0), fq_mul(t1, z3));
-  r.z = fq_add(fq_mul(z3, t4), fq_mul(t0, t3));
-  return r;
-}
-
-// Complete mixed addition P + (x2, y2) with the second point affine
-// (algorithm 8, a = 0): 11 field multiplies.  The same sequence as the JAX
-// package's `_k_g1_madd`.  (x2, y2) must be a curve point, never infinity.
-CP_DEV Proj g1_madd(const Proj& p, const Fq& x2, const Fq& y2) {
-  Fq t0 = fq_mul(p.x, x2);
-  Fq t1 = fq_mul(p.y, y2);
-  Fq t3 = fq_mul(fq_add(x2, y2), fq_add(p.x, p.y));
-  t3 = fq_sub(t3, fq_add(t0, t1));
-  Fq t4 = fq_add(fq_mul(y2, p.z), p.y);
-  Fq y3 = fq_add(fq_mul(x2, p.z), p.x);
-  Fq x3 = fq_add(t0, t0);
-  t0 = fq_add(x3, t0);
-  Fq t2 = fq_mul_b3(p.z);
   Fq z3 = fq_add(t1, t2);
   t1 = fq_sub(t1, t2);
   y3 = fq_mul_b3(y3);

@@ -1,8 +1,10 @@
 // BLS12-381 base field and the complete adds (mixed and full) on carry
-// chains.  Included by g1_fold_madd.cu (the bucket fold), g1_add.cu (the
-// complete add and the scan step around it) and g1_sqrt.cuh (the square root
-// of compressed ingest); fq_mul, g1_fold_packed, g1_fold_rows and
-// g1_suffix_weighted stay on bls12_381.cuh.
+// chains.  Five kernels run on it: g1_fold_madd.cu (the bucket fold),
+// g1_add.cu (the complete add and the scan step around it), g1_sqrt.cuh (the
+// square root of compressed ingest), g1_suffix_weighted.cuh (the bucket
+// reduction's inner step) and fq_mul.cu (the batched product); only
+// g1_fold_packed and g1_fold_rows, which no main path launches, stay on
+// bls12_381.cuh.
 //
 // Same numbers as bls12_381.cuh: 12 x 32-bit limbs, little-endian, Montgomery
 // form with R = 2^384, every output canonical (< q).  Canonical Montgomery
@@ -353,9 +355,8 @@ CC_HD Fq fq_mul_b3(const Fq& a) {
 
 // Complete mixed addition P + (x2, y2), the second point affine (RCB16
 // algorithm 8, a = 0): 11 field multiplies in the sequence of the JAX
-// package's `_k_g1_madd` (and of bls12_381.cuh's cp::g1_madd), so the output
-// is the same projective representative.  (x2, y2) is a curve point, never
-// infinity.
+// package's `_k_g1_madd`, so the output is the same projective
+// representative.  (x2, y2) is a curve point, never infinity.
 CC_HD Proj g1_madd(const Proj& p, const Fq& x2, const Fq& y2) {
   Fq t0 = fq_mul(p.x, x2);
   Fq t1 = fq_mul(p.y, y2);

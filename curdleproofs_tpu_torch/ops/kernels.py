@@ -7,14 +7,19 @@ Kernels (sources in `../csrc/`, one shared object each):
                        round of a masked suffix scan
                        (`g1_add_scan`, its second entry)
 - `g1_fold_madd`       Pippenger bucket fold, mixed adds   (g1_fold_madd.cu)
-- `g1_suffix_weighted` bucket-reduction inner step         (g1_suffix_weighted.cu)
+- `g1_suffix_weighted` bucket-reduction inner step,        (g1_suffix_weighted.cu)
+                       routed by shape to its chain entry
+                       or to its tree entry
+                       (`g1_suffix_weighted_tree`)
 - `g1_fold_packed`     Pippenger bucket fold, full adds    (g1_fold_packed.cu)
 - `g1_sqrt`            y from x, compressed base ingest    (g1_sqrt.cu)
 - `g1_fold_rows`       fold of gathered [24, T, S] rows    (g1_fold_rows.cu)
 - `g1_add_rows`        batched add on [24, N] 3-tuples     (launches g1_add.cu)
 
-g1_add.cu, g1_fold_madd.cu and g1_sqrt.cu run on the carry-chain field core
-`fq_cc.cuh`; the others on `bls12_381.cuh`.
+Five sources run on the carry-chain field core `fq_cc.cuh`: fq_mul.cu,
+g1_add.cu, g1_fold_madd.cu, g1_suffix_weighted.cu and g1_sqrt.cu.
+`bls12_381.cuh` serves only g1_fold_packed.cu and g1_fold_rows.cu, which no
+main path launches.
 
 Each wrapper takes the reference layouts as int32 tensors (16-bit limbs
 `[24, ...]`, packed limb pairs `[12, ...]`; the kernels read them as
@@ -22,7 +27,8 @@ uint32).  For a tensor on the CPU it runs the plain version; for a CUDA
 tensor it launches the kernel, or raises.  `LAUNCHES` counts kernel launches
 per wrapper, so a run can show its main path went through the kernels
 (`g1_add_rows` counts its own launches of g1_add.cu's entry; `g1_add_scan`
-counts under `g1_add`).
+counts under `g1_add`; the tree entry of g1_suffix_weighted.cu counts under
+`g1_suffix_weighted_tree`).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into `../_build/cuda/`
 at first use, one process per source, all started together (`build()`),
@@ -56,13 +62,17 @@ __all__ = ["KERNELS", "LAUNCHES", "SQRT_DIGITS", "build", "reset_launches",
            "g1_fold_madd", "g1_fold_madd_plain",
            "g1_fold_packed", "g1_fold_packed_plain",
            "g1_suffix_weighted", "g1_suffix_weighted_plain",
+           "g1_suffix_weighted_tree", "g1_suffix_weighted_tree_plain",
+           "suffix_uses_tree",
            "g1_sqrt", "g1_sqrt_plain", "g1_fold_rows", "g1_fold_rows_plain",
            "g1_add_rows", "g1_add_rows_plain", "source_of", "ptxas_usage"]
 
 KERNELS = ("fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted",
-           "g1_fold_packed", "g1_sqrt", "g1_fold_rows", "g1_add_rows")
+           "g1_suffix_weighted_tree", "g1_fold_packed", "g1_sqrt",
+           "g1_fold_rows", "g1_add_rows")
 # the wrappers that launch another kernel's source (and its C entry)
-_SHARES_SOURCE = {"g1_add_rows": "g1_add"}
+_SHARES_SOURCE = {"g1_add_rows": "g1_add",
+                  "g1_suffix_weighted_tree": "g1_suffix_weighted"}
 SOURCES = tuple(k for k in KERNELS if k not in _SHARES_SOURCE)
 LAUNCHES = {k: 0 for k in KERNELS}
 _LAUNCHES_LOCK = threading.Lock()  # a stream's worker thread launches too
@@ -75,11 +85,12 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 _ARGTYPES = {
-    "fq_mul": [_P, _P, _P, _I64, _P],
+    "fq_mul": [_P, _I64, _P, _I64, _P, _I64, _P],
     "g1_add": [_P] * 9 + [_I64, _P],
     "g1_add_scan": [_P] * 4 + [_I64, _I64] + [_P] * 4,
     "g1_fold_madd": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64] + [_P] * 5,
     "g1_suffix_weighted": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
+    "g1_suffix_weighted_tree": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
     "g1_fold_packed": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64, _P, _P, _P, _P],
     "g1_sqrt": [_P, _I64, _P, _P],
     "g1_fold_rows": [_P, _P, _P, ctypes.c_int, _I64, _P, _P, _P, _P],
@@ -256,16 +267,20 @@ def fq_mul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def fq_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """`fq_mul_plain` in one launch.  An operand of a single element (such
+    as the plain 1 of leave-Montgomery) goes to the kernel as its one column,
+    which every lane reads; any other broadcast is materialised."""
     if _on_cpu(a, b):
         return fq_mul_plain(a, b)
     batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
-    a = a.expand(L, *batch).reshape(L, -1).contiguous()
-    b = b.expand(L, *batch).reshape(L, -1).contiguous()
-    n = a.shape[1]
-    out = torch.empty_like(a)
+    a, b = (t.reshape(L, 1).contiguous() if t[0].numel() == 1
+            else t.expand(L, *batch).reshape(L, -1).contiguous()
+            for t in (a, b))
+    n = max(a.shape[1], b.shape[1]) if batch.numel() else 0
+    out = torch.empty((L, n), dtype=torch.int32, device=a.device)
     if n:
-        _launch("fq_mul", a.device, a.data_ptr(), b.data_ptr(),
-                out.data_ptr(), n)
+        _launch("fq_mul", a.device, a.data_ptr(), a.shape[1], b.data_ptr(),
+                b.shape[1], out.data_ptr(), n)
     return out.reshape(L, *batch)
 
 
@@ -400,9 +415,45 @@ def g1_suffix_weighted_plain(x, y, z) -> tuple[PointsXYZ, PointsXYZ]:
             PointsXYZ(*(c.int() for c in w)))
 
 
-def g1_suffix_weighted(x, y, z) -> tuple[PointsXYZ, PointsXYZ]:
-    if _on_cpu(x, y, z):
-        return g1_suffix_weighted_plain(x, y, z)
+def g1_suffix_weighted_tree_plain(x, y, z) -> tuple[PointsXYZ, PointsXYZ]:
+    """The tree entry's order of adds, Cb a power of two: a Hillis-Steele
+    suffix scan over the buckets (round s: S_j = S_j + S_{j+s} where
+    j + s < Cb), total = S_0, then a pairwise tree sum of the S_j
+    (T_j = T_{2j} + T_{2j+1}, round by round) gives weighted.  The same
+    points as `g1_suffix_weighted_plain`, other projective representatives."""
+    cb = x.shape[1]
+    if cb & (cb - 1):
+        raise ValueError(f"the tree takes Cb a power of two, got {cb}")
+    v = PointsXYZ(x.long(), y.long(), z.long())
+    s = 1
+    while s < cb:
+        head = g1_add64(PointsXYZ(*(c[:, :cb - s] for c in v)),
+                        PointsXYZ(*(c[:, s:] for c in v)))
+        v = PointsXYZ(*(torch.cat([h, c[:, cb - s:]], dim=1)
+                        for h, c in zip(head, v)))
+        s *= 2
+    total = PointsXYZ(*(c[:, 0].int() for c in v))
+    while v.x.shape[1] > 1:
+        v = g1_add64(PointsXYZ(*(c[:, 0::2] for c in v)),
+                     PointsXYZ(*(c[:, 1::2] for c in v)))
+    return total, PointsXYZ(*(c[:, 0].int() for c in v))
+
+
+# The tree entry serves Cb in {8, 16} up to this many lanes (WG), the widest
+# at which it beat the chain at both Cb on an H100 (`kernel_probe.py
+# suffix`; PERF.md): the c = 8 reduction's 512 lanes go to the tree, the
+# c = 16 reduction's 32,768 to the chain, which fills the card there while
+# the tree would do log2 Cb times its adds.
+SUFFIX_TREE_MAX_WG = 8192
+
+
+def suffix_uses_tree(cb: int, wg: int) -> bool:
+    """Whether `g1_suffix_weighted` sends a [24, Cb, WG] launch to the
+    tree entry."""
+    return cb in (8, 16) and wg <= SUFFIX_TREE_MAX_WG
+
+
+def _suffix_launch(name, x, y, z) -> tuple[PointsXYZ, PointsXYZ]:
     if x.ndim != 3 or x.shape[0] != L or y.shape != x.shape \
             or z.shape != x.shape:
         raise ValueError("suffix takes three [24, Cb, WG] limb tensors")
@@ -411,10 +462,35 @@ def g1_suffix_weighted(x, y, z) -> tuple[PointsXYZ, PointsXYZ]:
     outs = [torch.empty((L, wg), dtype=torch.int32, device=x.device)
             for _ in range(6)]
     if wg:
-        _launch("g1_suffix_weighted", x.device,
-                *(t.data_ptr() for t in (x, y, z)), cb, wg,
-                *(t.data_ptr() for t in outs))
+        _launch(name, x.device, *(t.data_ptr() for t in (x, y, z)), cb, wg,
+                *(t.data_ptr() for t in outs), entry=name)
     return PointsXYZ(*outs[:3]), PointsXYZ(*outs[3:])
+
+
+def g1_suffix_weighted(x, y, z, tree: bool | None = None
+                       ) -> tuple[PointsXYZ, PointsXYZ]:
+    """(total, weighted) of [24, Cb, WG] buckets.  On the card the launch
+    goes to the tree entry where `suffix_uses_tree` says so (its sums are
+    `g1_suffix_weighted_tree_plain`'s representatives), else to the chain
+    entry (`g1_suffix_weighted_plain`'s); `tree` forces one of them."""
+    if _on_cpu(x, y, z):
+        return g1_suffix_weighted_plain(x, y, z)
+    if tree is None:
+        tree = x.ndim == 3 and suffix_uses_tree(x.shape[1], x.shape[2])
+    if tree:
+        return g1_suffix_weighted_tree(x, y, z)
+    return _suffix_launch("g1_suffix_weighted", x, y, z)
+
+
+def g1_suffix_weighted_tree(x, y, z) -> tuple[PointsXYZ, PointsXYZ]:
+    """The tree entry (Cb = 8 or 16) of g1_suffix_weighted.cu; on the CPU
+    `g1_suffix_weighted_tree_plain`."""
+    if _on_cpu(x, y, z):
+        return g1_suffix_weighted_tree_plain(x, y, z)
+    if x.ndim != 3 or x.shape[1] not in (8, 16):
+        raise ValueError("the tree entry takes [24, Cb, WG] with Cb = 8 or "
+                         "16")
+    return _suffix_launch("g1_suffix_weighted_tree", x, y, z)
 
 
 # --------------------------------------------------------------------------

@@ -7,11 +7,11 @@ sort, slot plan, bucket fold (`g1_fold_madd` kernel, or `g1_fold_packed`
 with `madd=False`), slot merge (`g1_add` kernel, one scan-step launch a
 round), dense bucket layout, bucket reduction (`g1_suffix_weighted` kernel,
 then `g1_add` suffix scans and the x Cb doubling chain), and the
-leave-Montgomery multiply
-(`fq_mul` kernel).  The host uploads the 32-byte scalars (bases stay
-resident, see `prepare_bases`; on the card they cross compressed and the
-`g1_sqrt` kernel rebuilds y), downloads W window sums, and finishes with a
-W-term Horner ladder.  `DeviceMsmStream` runs many chunks of one fixed shape
+leave-Montgomery multiply (one `fq_mul` launch over the three
+coordinates).  The host uploads the 32-byte scalars (bases stay resident,
+see `prepare_bases`; on the card they cross compressed and the `g1_sqrt`
+kernel rebuilds y), downloads W window sums, and finishes with a W-term
+Horner ladder.  `DeviceMsmStream` runs many chunks of one fixed shape
 family and sums their window sums (batch verification's streamed MSM).
 
 Shape families are the reference's: c in {8, 16}, slot depth T, slot count
@@ -406,6 +406,28 @@ def _suffix_scan(v: PointsXYZ, key: torch.Tensor, span: int) -> PointsXYZ:
     return v
 
 
+def _dense_buckets(acc: PointsXYZ, firstmap: torch.Tensor, c: int,
+                   w_cnt: int) -> PointsXYZ:
+    """The merged slots [24, s_pad] as the reduction's dense buckets
+    [24, Cb, W*G]: [:, j, w*G + g] holds bucket g*Cb + j of window w, the
+    point of its first slot (`firstmap`), or infinity where it is empty."""
+    b_cnt = 1 << (c - 1)
+    g_chunks, cb = _phase3_chunks(c, w_cnt)
+    wg = w_cnt * g_chunks
+    dev = acc.x.device
+    s_pad = acc.x.shape[1]
+    j_i = torch.arange(cb, device=dev)[:, None]
+    wg_i = torch.arange(wg, device=dev)[None, :]
+    kk = (wg_i // g_chunks) * b_cnt + (wg_i % g_chunks) * cb + j_i
+    sel = firstmap[kk]                                     # [cb, wg]
+    occ = (sel < _BIG)[None]
+    sel_c = torch.clamp(sel, max=s_pad - 1)
+    one_m = FQ.const(1, (1, 1), dev)
+    return PointsXYZ(torch.where(occ, acc.x[:, sel_c], 0),
+                     torch.where(occ, acc.y[:, sel_c], one_m),
+                     torch.where(occ, acc.z[:, sel_c], 0))
+
+
 def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
                    madd=True, mark=None):
     """Window sums for the windows of signed digits [W, n] over the extended
@@ -415,7 +437,6 @@ def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
     caller records CUDA events there)."""
     mark = mark or (lambda stage: None)
     w_cnt = digits.shape[0]
-    b_cnt = 1 << (c - 1)
     g_chunks, cb = _phase3_chunks(c, w_cnt)
     wg = w_cnt * g_chunks
     dev = digits.device
@@ -433,17 +454,7 @@ def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
     mark("merge")
 
     # -- 10. dense buckets, laid out [24, Cb, W*G] for the reduction -------
-    j_i = torch.arange(cb, device=dev)[:, None]
-    wg_i = torch.arange(wg, device=dev)[None, :]
-    kk = (wg_i // g_chunks) * b_cnt + (wg_i % g_chunks) * cb + j_i
-    sel = sp.firstmap[kk]                                  # [cb, wg]
-    occ = (sel < _BIG)[None]
-    sel_c = torch.clamp(sel, max=s_pad - 1)
-    one_m = FQ.const(1, (1, 1), dev)
-    dense = PointsXYZ(torch.where(occ, acc.x[:, sel_c], 0),
-                      torch.where(occ, acc.y[:, sel_c], one_m),
-                      torch.where(occ, acc.z[:, sel_c], 0))
-
+    dense = _dense_buckets(acc, sp.firstmap, c, w_cnt)
     mark("dense")
 
     # -- 11. bucket reduction: sum_b (b+1) * bucket_b per window -----------
@@ -477,10 +488,13 @@ def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
 
 
 def _leave_montgomery(wsum: PointsXYZ) -> torch.Tensor:
-    """[24, W] x3 Montgomery -> canonical (mul by plain 1 = mont-reduce)."""
+    """[24, W] x3 Montgomery -> [3, 24, W] canonical (mul by plain 1 =
+    mont-reduce): the three coordinates side by side, [24, 3W], in one
+    product."""
+    w = wsum.x.shape[1]
     one_plain = FQ.plain_const(1, (1,), wsum.x.device)
-    return torch.stack([FQ.mul(wsum.x, one_plain), FQ.mul(wsum.y, one_plain),
-                        FQ.mul(wsum.z, one_plain)])
+    out = FQ.mul(torch.cat(tuple(wsum), dim=1), one_plain)
+    return out.reshape(FQ_LIMBS, 3, w).transpose(0, 1)
 
 
 def _msm_pipeline(bases: "DeviceBases", limbs: np.ndarray,

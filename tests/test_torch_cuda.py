@@ -115,8 +115,12 @@ def test_msm_device_on_card_both_windows(c):
     ss = [rnd.randrange(R) for _ in range(n)]
     kernels.reset_launches()
     got = md.msm_device(pts, ss, c=c, device="cuda")
+    # c = 8 reduces 512 lanes (the tree entry), c = 16 32,768 (the chain)
+    suffix = "g1_suffix_weighted_tree" if c == 8 else "g1_suffix_weighted"
     assert {k for k, v in kernels.LAUNCHES.items() if v > 0} == {
-        "fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted", "g1_sqrt"}
+        "fq_mul", "g1_add", "g1_fold_madd", suffix, "g1_sqrt"}
+    # the ingest's parity product and one leave-Montgomery product
+    assert kernels.LAUNCHES["fq_mul"] == 2
     assert got == HostBackend().msm(pts, ss)
 
 
@@ -400,3 +404,76 @@ def test_g1_sqrt_kernel_widths(n):
     pxp = md.u32_to_tensor(px, dev)
     got = kernels.g1_sqrt(pxp)
     assert torch.equal(got, kernels.g1_sqrt_plain(pxp))
+
+
+def _suffix_buckets(cb: int, wg: int) -> list[torch.Tensor]:
+    """[24, Cb, WG] buckets on the CPU (bucket j of lane l at column
+    j * WG + l), general z, with special lanes: every bucket at infinity;
+    P and -P alternating; one point in every bucket; all-zero (0, 0, 0)
+    rows in every other bucket."""
+    p, _ = _adversarial_pairs(cb * wg)
+    rows = [c.reshape(FQ_LIMBS, cb, wg).clone() for c in p]
+    g = points_to_device([StdRng.seed_from_u64(22).rand_g1()], "cpu")
+    neg = points_to_device([points_from_device(g)[0].neg()], "cpu")
+    inf = points_to_device([G1.infinity()], "cpu")
+    zero = PointsXYZ(*(torch.zeros_like(c) for c in inf))
+    for lane, fill in enumerate((
+            lambda j: inf, lambda j: g if j % 2 else neg, lambda j: g,
+            lambda j: zero if j % 2 else g)[:wg]):
+        for j in range(cb):
+            for c, v in zip(rows, fill(j)):
+                c[:, j, lane] = v[:, 0]
+    return rows
+
+
+@pytest.mark.parametrize("cb, wg", [(3, 37), (8, 512), (16, 4099)])
+def test_suffix_weighted_entries_widths_and_special_points(cb, wg):
+    """The carry-chain chain entry against `g1_suffix_weighted_plain` and,
+    at Cb = 8 and 16, the tree entry against `g1_suffix_weighted_tree_plain`
+    (array equality); the routed wrapper takes the entry `suffix_uses_tree`
+    names."""
+    dev = _card()
+    rows = _suffix_buckets(cb, wg)
+    on = [c.to(dev) for c in rows]
+    entries = [(False, "g1_suffix_weighted",
+                kernels.g1_suffix_weighted_plain)]
+    if cb in (8, 16):
+        entries.append((True, "g1_suffix_weighted_tree",
+                        kernels.g1_suffix_weighted_tree_plain))
+    for tree, name, plain in entries:
+        before = kernels.LAUNCHES[name]
+        got = kernels.g1_suffix_weighted(*on, tree=tree)
+        assert kernels.LAUNCHES[name] == before + 1
+        want = plain(*rows)
+        assert all(torch.equal(a.cpu(), b)
+                   for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])))
+    name = "g1_suffix_weighted_tree" if kernels.suffix_uses_tree(cb, wg) \
+        else "g1_suffix_weighted"
+    before = kernels.LAUNCHES[name]
+    kernels.g1_suffix_weighted(*on)
+    assert kernels.LAUNCHES[name] == before + 1
+
+
+@pytest.mark.parametrize("n", [1, 37, 96, 1 << 16])
+def test_fq_mul_kernel_widths_and_broadcast(n):
+    """The carry-chain product against `fq_mul_plain` at ragged widths, with
+    edge residues in the first lanes, and each operand broadcast from one
+    column (as leave-Montgomery's plain 1, also as [24, 1, 1] against
+    [24, 3, n]) or from [24, 1, n] to [24, 3, n]."""
+    dev = _card()
+    vals = [0, 1, Q - 1, FQ.to_mont(1)] + [rnd.randrange(Q) for _ in range(
+        min(n, 4096))]
+    vals = [vals[i % len(vals)] for i in range(n)]
+
+    def limbs(v):
+        return torch.from_numpy(ints_to_limbs(v, FQ_LIMBS).T.astype(np.int32))
+
+    a, b = limbs(vals), limbs(vals[::-1])
+    col = limbs([FQ.to_mont(5)])
+    three = torch.stack([a, b, a], dim=1)                 # [24, 3, n]
+    for x, y in ((a, b), (a, col), (col, b), (three, a[:, None]),
+                 (col[:, None], three)):
+        before = kernels.LAUNCHES["fq_mul"]
+        got = kernels.fq_mul(x.to(dev), y.to(dev))
+        assert kernels.LAUNCHES["fq_mul"] == before + 1
+        assert torch.equal(got.cpu(), kernels.fq_mul_plain(x, y))

@@ -1,5 +1,6 @@
 """The carry-chain field core (`csrc/fq_cc.cuh`) of the bucket fold, the
-complete add and the square root, through its portable C twin, on the CPU.
+complete add, the square root and the bucket reduction's suffix chain,
+through its portable C twin, on the CPU.
 
 The header compiles its PTX primitives only for the card; any other compiler
 gets the twin: the same chains with the carry flag kept in a variable.  A
@@ -16,7 +17,12 @@ small harness over the header is built here with g++ and checked:
   of the reference's padding;
 - the square-root chain of `csrc/g1_sqrt.cuh` (with the generated
   `sqrt_constants.h`) against `g1_sqrt_plain`, on the x of seeded points,
-  the identity lane's x = 0 and x that are no curve point's.
+  the identity lane's x = 0 and x that are no curve point's;
+- the suffix chain of `csrc/g1_suffix_weighted.cuh` (the chain entry's
+  `cc::suffix_weighted_lane`, reading the kernel's [24, Cb, WG] rows)
+  against `g1_suffix_weighted_plain` at Cb = 1, 3, 8 and 16, with buckets
+  at infinity, P beside -P, one point repeated down a lane and all-zero
+  (0, 0, 0) padding rows.
 
 Tolerance: exact (canonical residues, array equality).  The PTX path itself
 is held only on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
@@ -46,6 +52,7 @@ R_MOD_Q = (1 << 384) % Q
 _HARNESS = r"""
 #include "fq_cc.cuh"
 #include "g1_sqrt.cuh"
+#include "g1_suffix_weighted.cuh"
 
 static cc::Fq get(const uint32_t* p) {
   cc::Fq r;
@@ -95,6 +102,18 @@ extern "C" void cc_sqrt(const uint32_t* x, uint32_t* out, long n) {
   for (long k = 0; k < n; ++k)
     put(out + 12 * k, cc::sqrt_candidate(get(x + 12 * k)));
 }
+
+// [24, cb, wg] 16-bit limb rows of x, y, z -> out [6, 24, wg]: total x, y,
+// z, then weighted x, y, z, as the kernel stores them
+extern "C" void cc_suffix(const uint32_t* x, const uint32_t* y,
+                          const uint32_t* z, int cb, long wg, uint32_t* out) {
+  for (long lane = 0; lane < wg; ++lane) {
+    cc::Proj t, w;
+    cc::suffix_weighted_lane(x, y, z, cb, wg, lane, t, w);
+    const cc::Fq* c[6] = {&t.x, &t.y, &t.z, &w.x, &w.y, &w.z};
+    for (int k = 0; k < 6; ++k) cc::store16(out + k * 24 * wg, wg, lane, *c[k]);
+  }
+}
 """
 
 
@@ -119,6 +138,7 @@ def lib(tmp_path_factory):
     h.cc_madd.argtypes = [p, p, p, ctypes.c_long]
     h.cc_add.argtypes = [p, p, p, ctypes.c_long]
     h.cc_sqrt.argtypes = [p, p, ctypes.c_long]
+    h.cc_suffix.argtypes = [p, p, p, ctypes.c_int, ctypes.c_long, p]
     return h
 
 
@@ -251,3 +271,37 @@ def test_sqrt_chain_matches_plain_version(lib):
     for x, y in zip(xs[:24], _ints(out)):
         yy = FQ.from_mont(y)
         assert yy * yy % Q == (x ** 3 + 4) % Q
+
+
+def _suffix_lanes(cb: int, seed: int) -> list[list]:
+    """Per lane, its Cb buckets (bucket j at index j; None is an all-zero
+    row): seeded points; every other bucket at infinity; P beside -P (the
+    suffix passes through infinity); one point in every bucket; all-zero
+    rows in every third bucket."""
+    r = np.random.default_rng(seed)
+    pts = [GENERATOR.mul(int(k)) for k in r.integers(1, 2**62, size=2 * cb)]
+    inf = G1.infinity()
+    p = pts[0]
+    pm = [p if j % 2 else p.neg() for j in range(cb)] if cb > 1 else [p]
+    return [pts[:cb],
+            [inf if j % 2 == 0 else pts[cb + j] for j in range(cb)],
+            pm,
+            [pts[1]] * cb,
+            [None if j % 3 == 0 else pts[cb + j] for j in range(cb)]]
+
+
+@pytest.mark.parametrize("cb", [1, 3, 8, 16])
+def test_suffix_chain_matches_plain_version(lib, cb):
+    lanes = _suffix_lanes(cb, seed=40 + cb)
+    wg = len(lanes)
+    cells = [lanes[lane][j] for j in range(cb) for lane in range(wg)]
+    r = np.random.default_rng(50 + cb)
+    lam = [int(v) for v in r.integers(1, 2**63, size=len(cells))]
+    xyz = [_limbs16(c).reshape(FQ_LIMBS, cb, wg)
+           for c in _projective(cells, lam)]
+    rows = [np.ascontiguousarray(c.numpy().astype(np.uint32)) for c in xyz]
+    out = np.zeros((6, FQ_LIMBS, wg), dtype=np.uint32)
+    lib.cc_suffix(*map(_ptr, rows), cb, wg, _ptr(out))
+    total, weighted = K.g1_suffix_weighted_plain(*(c.int() for c in xyz))
+    for k, w in enumerate((*total, *weighted)):
+        assert np.array_equal(out[k], w.numpy().astype(np.uint32))

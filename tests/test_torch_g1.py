@@ -11,6 +11,7 @@ representatives of the same points)."""
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 from jax import lax
 
@@ -188,3 +189,25 @@ def test_plain_suffix_matches_jax_reduction_branch():
             want_t = want_t.add(p)
             want_w = want_w.add(p.mul(j + 1))
         assert (tot, wei) == (want_t, want_w)
+
+
+@pytest.mark.parametrize("cb, wg", [(8, 4), (16, 3)])
+def test_tree_suffix_matches_chain_and_jax_reduction_branch(cb, wg):
+    """The tree entry's order of adds (`g1_suffix_weighted_tree_plain`)
+    gives the chain's points: affine equality against the plain chain and
+    the JAX reduction branch, on lanes with buckets at infinity and P beside
+    -P."""
+    rng = StdRng.seed_from_u64(32 + cb)
+    pts = [rng.rand_g1() for _ in range(cb * wg)]
+    for j in range(0, cb, 3):
+        pts[j * wg] = G1.infinity()               # lane 0: some empty buckets
+    for j in range(1, cb, 2):
+        pts[j * wg + 1] = pts[(j - 1) * wg + 1].neg()   # lane 1: P, -P pairs
+    d = jg.points_to_device(pts)
+    x, y, z = (c.reshape(L, cb, wg) for c in d)
+    wt, ww = jax.jit(_jax_suffix_jnp)(x, y, z)
+    tt, tw = kernels.g1_suffix_weighted_tree_plain(_t(x), _t(y), _t(z))
+    ct, cw = kernels.g1_suffix_weighted_plain(_t(x), _t(y), _t(z))
+    for got, chain, ref in ((tt, ct, wt), (tw, cw, ww)):
+        assert points_from_device(got) == points_from_device(chain) == [
+            _host(p) for p in jg.points_from_device(ref)]

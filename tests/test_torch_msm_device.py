@@ -122,3 +122,27 @@ def test_plan_stages_match_jax_both_windows(c):
     params, sp = _plan_stages(limbs, n_pad, c)
     assert sp.plan.shape == (params.t_rows, params.s_pad)
     assert sp.kmax >= 1
+
+
+def test_leave_montgomery_one_product_matches_three_and_jax():
+    """Leave-Montgomery as one product over the three coordinates side by
+    side ([24, 3W]) equals the three products, one a coordinate, and the
+    JAX package's `_leave_montgomery` (array equality)."""
+    from curdleproofs_tpu.ops import g1_ops as jg
+    from curdleproofs_tpu_torch.ops.field import FQ
+    from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ
+
+    rng = StdRng.seed_from_u64(23)
+    pts = [rng.rand_g1() for _ in range(5)] + [G1.infinity()]
+    d = jg.points_to_device(pts)
+    # a general z: every coordinate times one seeded Montgomery factor
+    lam = FQ.const(987654321, (1,), "cpu")
+    wsum = PointsXYZ(*(FQ.mul(torch.from_numpy(np.asarray(c).astype(
+        np.int32)), lam) for c in d))
+    one = FQ.plain_const(1, (1,), "cpu")
+    three = torch.stack([FQ.mul(c, one) for c in wsum])
+    got = md._leave_montgomery(wsum)
+    assert got.shape == three.shape and torch.equal(got, three)
+    want = jmd._leave_montgomery(jg.PointsXYZ(
+        *(jnp.asarray(c.numpy().astype(np.uint32)) for c in wsum)))
+    assert np.array_equal(got.numpy().astype(np.uint32), np.asarray(want))
