@@ -18,13 +18,15 @@ Phases (any failure exits non-zero; nothing is caught):
    other in turns; fq_mul at leave-Montgomery's [24, 3W = 96]), fq_mul,
    g1_add and g1_add_rows at 2^16, g1_add at 32,768 lanes (the 626k
    reduction's W*G) and 512 lanes (the protocol's c = 8 W*G), and g1_sqrt
-   at n = 128 (a protocol MSM's padded bases).  The two suffix entries and
-   fq_mul also carry `kernel_ms`, their device time without host gaps
-   (`kernel_probe.graph_ms`: launches captured in a CUDA graph).  The ptxas
-   registers and spills of fq_mul, the fold, g1_add, both suffix entries
-   and g1_sqrt go into their records (g1_add's scan entry under
-   `scan_registers`, `scan_spill_bytes`; the tree entry at Cb = 16 under
-   `cb16_`); the 626k bases made resident
+   at n = 128 (a protocol MSM's padded bases).  The three folds, the two
+   suffix entries and fq_mul also carry `kernel_ms`, their device time
+   without host gaps (`kernel_probe.graph_ms`: launches captured in a CUDA
+   graph).  The ptxas registers, spills and stack of fq_mul, the three
+   folds, g1_add, both suffix entries and g1_sqrt go into their records
+   (g1_add's scan entry under `scan_registers`, `scan_spill_bytes`; the
+   tree entry at Cb = 16 under `cb16_`), and the records of g1_fold_packed
+   and g1_fold_rows their rows by kind (`kernel_probe.fold_row_kinds`, from
+   which both kernels' bounds are counted); the 626k bases made resident
    compressed (x + parity, y from g1_sqrt) and uncompressed must be
    bit-identical, with each upload's wall time and bytes (after one untimed
    warm-up upload, three timed uploads each way, in turns);
@@ -77,6 +79,13 @@ import time
 import numpy as np
 import torch
 
+# the 626k MSM's data and the folds' inputs: one definition, shared with
+# `kernel_probe.py fold`
+from curdleproofs_tpu_torch.tools.kernel_probe import (
+    FOLD_N as N_BIG, FOLD_ROWS_S, FOLD_SEED, FOLD_TILE as TILE, fold_data,
+    fold_inputs, fold_row_kinds, graph_ms,
+)
+
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "whisk_shuffle_proof_128.hex"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -84,8 +93,6 @@ IMAD_PER_CLK_PER_SM = 64    # 32-bit integer multiply-add, compute capability 9.
 MUL32_PER_FQ_MUL = 600      # 300 32x32->64 products (CIOS, 12 limbs), 2 each
 MUL32_PER_FQ_SQR = 468      # 78 + 12 + 144 products (squaring, then reduction)
 N_SMALL = 1 << 16           # the c = 8 MSM family, and the kernels' width
-N_BIG = 626_000             # deduped batch-verify MSM at B = 1024, l = 252
-TILE = 4096                 # random bases, tiled to the MSM sizes
 CHAIN_BLOCKS = 64           # phase 5: Whisk blocks in the synced chain
 BATCH_ELL, BATCH_B, BATCH_CHUNK = 252, 256, 64   # phase 6
 MAIN_PATH = "protocol l=124 + l=252"
@@ -104,7 +111,6 @@ REPLACES = {
     "g1_add_rows": "curdleproofs_tpu/ops/pallas_kernels.py:526",
 }
 NO_CALLER = {"g1_fold_rows", "g1_add_rows"}
-FOLD_ROWS_S = 1 << 17       # g1_fold_rows: the first 2^17 slots of the plan
 BIG_PATH = f"msm n={N_BIG}"
 # the suffix kernel's entries: the tree serves the c = 8 reduction (WG =
 # 512), the chain the c = 16 one (WG = 32,768)
@@ -212,10 +218,9 @@ def main() -> int:
     from curdleproofs_tpu_torch.ops import kernels as K
     from curdleproofs_tpu_torch.ops import msm_device as md
     from curdleproofs_tpu_torch.ops.backend import TorchBackend
-    from curdleproofs_tpu_torch.ops.field import FQ, unpack_pairs
+    from curdleproofs_tpu_torch.ops.field import FQ
     from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ, points_to_device
     from curdleproofs_tpu_torch.parallel import batch_verify as bv
-    from curdleproofs_tpu_torch.tools.kernel_probe import graph_ms
     from curdleproofs_tpu_torch.util import (
         generate_blinders, get_permutation, msm,
         shuffle_permute_and_commit_input,
@@ -246,9 +251,9 @@ def main() -> int:
         tb, to = nbytes / HBM_BYTES_PER_S, nmul / int_rate
         return max(tb, to) * 1e3, ("bytes" if tb >= to else "operations")
 
-    rnd = random.Random(2024)
-    rng = StdRng.seed_from_u64(2024)
-    tile = [rng.rand_g1() for _ in range(TILE)]
+    rnd = random.Random(FOLD_SEED)
+    rng = StdRng.seed_from_u64(FOLD_SEED)
+    tile, big_pts, big_ss = fold_data(rng, rnd)
 
     def tiled(n, shift=0):
         return [tile[(i + shift) % TILE] for i in range(n)]
@@ -286,10 +291,10 @@ def main() -> int:
         return got
 
     def with_ptxas(name, entry, prefix=""):
-        """ptxas' `registers` and `spill_bytes` of kernel `entry` into the
-        record of `name`."""
+        """ptxas' `registers`, `spill_bytes` and `stack_bytes` of kernel
+        `entry` into the record of `name`."""
         usage = K.ptxas_usage(reports[K.source_of(name)], entry)
-        if set(usage) != {"registers", "spill_bytes"}:
+        if set(usage) != {"registers", "spill_bytes", "stack_bytes"}:
             raise AssertionError(f"no ptxas report for {entry}: {usage}")
         records[name].update({prefix + k: v for k, v in usage.items()})
 
@@ -297,8 +302,6 @@ def main() -> int:
     # (the process's first loads the kernels and warms the allocator), then
     # three timed each way in turns; bit-identical layouts, each upload's
     # wall and bytes, and the host export's share of it.
-    big_pts = tiled(N_BIG)
-    big_ss = [rnd.randrange(R) for _ in range(N_BIG)]
     n_pad = md.pad_n(N_BIG)
     sent = {"1": 4 * (12 + 1) * n_pad, "0": 4 * (12 + 12 + 1) * n_pad}
     walls = {"1": [], "0": []}
@@ -344,42 +347,43 @@ def main() -> int:
     # plan, the merge's first g1_add over all its slots, the suffix kernel
     # at its WG = 16 x 2048, Cb = 16, fq_mul at its leave-Montgomery
     # [24, W] x [24, 1], and g1_sqrt over its padded bases' x.
-    params = md.pick_params(N_BIG)
-    limbs = torch.from_numpy(
-        md._scalars_to_limbs(big_ss, params.n).astype(np.int32)).to(dev)
-    sp = md._slot_plan(md._signed_digits(limbs, params.n, params.c),
-                       n=params.n, c=params.c, t_rows=params.t_rows,
-                       s_pad=params.s_pad)
-    ext = (big_bases.ext_px, big_bases.ext_py, big_bases.ext_zb)
-    live_rows = int((big_bases.ext_zb[sp.plan.long()] != 0).sum())
+    params, ext, sp, rows = fold_inputs(big_bases, big_ss)
+    kinds = fold_row_kinds(*ext, sp.plan)
     e_cnt, (t_rows, s_pad) = ext[0].shape[1], sp.plan.shape
-    log(f"fold family: {params}, live rows {live_rows}")
+    log(f"fold family: {params}, plan rows by kind {json.dumps(kinds)}")
     fold_bytes = (2 * 48 + 4) * e_cnt + 4 * t_rows * s_pad + 3 * 96 * s_pad
     acc = PointsXYZ(*check(
         "g1_fold_madd", f"plan [{t_rows}, {s_pad}] over {e_cnt} bases",
         lambda: K.g1_fold_madd(*ext, sp.plan),
         lambda: K.g1_fold_madd_plain(*ext, sp.plan), 3,
-        fold_bytes, live_rows * 11 * MUL32_PER_FQ_MUL))
-    with_ptxas("g1_fold_madd", "g1_fold_madd_kernel")
-    # the full-add fold computes every row, dead ones too; its bound counts
-    # the live rows' adds, the least work that gives the same sums
+        fold_bytes, kinds["live"] * 11 * MUL32_PER_FQ_MUL, graph=True))
+    with_ptxas("g1_fold_madd", "g1_fold_kernel")
+    # The full-add fold writes the complete add's words on every row, dead
+    # ones too.  Its bound counts the least work that writes the same words
+    # (`fold_row_kinds`): 11 products a live row, and of the T x S - live
+    # dead rows 3 a row (0 : +-1 : 0), 5 another (0 : y : 0), 12 one whose
+    # x is not 0.
     check("g1_fold_packed", f"plan [{t_rows}, {s_pad}] over {e_cnt} bases",
           lambda: K.g1_fold_packed(*ext, sp.plan),
           lambda: K.g1_fold_packed_plain(*ext, sp.plan), 3,
-          fold_bytes, live_rows * 12 * MUL32_PER_FQ_MUL)
+          fold_bytes, kinds["products"] * MUL32_PER_FQ_MUL, graph=True)
+    records["g1_fold_packed"]["row_kinds"] = kinds
+    with_ptxas("g1_fold_packed", "g1_fold_kernel")
 
     # g1_fold_rows on [24, T, S] rows gathered from the plan's first slots,
-    # z rebuilt from the liveness bit (dead rows z = 0, added all the same)
-    cols = sp.plan[:, :FOLD_ROWS_S].long()
-    one = FQ.const(1, (1, 1), dev)
-    rows = (unpack_pairs(ext[0][:, cols]).int(),
-            unpack_pairs(ext[1][:, cols]).int(),
-            torch.where(ext[2][cols][None] != 0, one, 0).int())
+    # z rebuilt from the liveness bit (dead rows z = 0, added all the same).
+    # The kernel runs the complete add on every row, but its bound, as the
+    # full-add fold's, counts the least work that writes the same words:
+    # these rows have z = one (live) or z = 0 (dead), so the same
+    # `fold_row_kinds` count of products applies.
+    rows_kinds = fold_row_kinds(*ext, sp.plan[:, :FOLD_ROWS_S])
     check("g1_fold_rows", f"[24, {t_rows}, {FOLD_ROWS_S}] rows of the plan",
           lambda: K.g1_fold_rows(*rows), lambda: K.g1_fold_rows_plain(*rows),
           3, 3 * 96 * t_rows * FOLD_ROWS_S + 3 * 96 * FOLD_ROWS_S,
-          t_rows * FOLD_ROWS_S * 12 * MUL32_PER_FQ_MUL)
-    del rows, cols
+          rows_kinds["products"] * MUL32_PER_FQ_MUL, graph=True)
+    records["g1_fold_rows"]["row_kinds"] = rows_kinds
+    with_ptxas("g1_fold_rows", "g1_fold_rows_kernel")
+    del rows
 
     partner = torch.clamp(torch.arange(s_pad, device=dev) + 1, max=s_pad - 1)
     nxt = PointsXYZ(*(c[:, partner] for c in acc))
@@ -501,7 +505,7 @@ def main() -> int:
         check("g1_add", f"N = {nw} ({what})", lambda: K.g1_add(pw, bw),
               lambda: K.g1_add_plain(pw, bw), 100, 9 * 96 * nw,
               nw * 12 * MUL32_PER_FQ_MUL)
-    del pp, a, b, pw, bw, dense, tg, wkey, sp, limbs, acc, nxt, pxp
+    del pp, a, b, pw, bw, dense, tg, wkey, sp, acc, nxt, pxp
     del px128, px
 
     # -- phases 3 to 6: each path counted on its own ------------------------

@@ -1,20 +1,21 @@
 // BLS12-381 base field and the complete adds (mixed and full) on carry
-// chains.  Five kernels run on it: g1_fold_madd.cu (the bucket fold),
-// g1_add.cu (the complete add and the scan step around it), g1_sqrt.cuh (the
-// square root of compressed ingest), g1_suffix_weighted.cuh (the bucket
-// reduction's inner step) and fq_mul.cu (the batched product); only
-// g1_fold_packed and g1_fold_rows, which no main path launches, stay on
-// bls12_381.cuh.
+// chains: the port's field core.  Every kernel runs on it: the bucket folds
+// (g1_fold_madd.cu and g1_fold_packed.cu through g1_fold.cuh), the fold of
+// gathered rows (g1_fold_rows.cu through g1_fold_rows.cuh), the complete add
+// and the scan step around it (g1_add.cu), the square root of compressed
+// ingest (g1_sqrt.cu through g1_sqrt.cuh), the bucket reduction's inner step
+// (g1_suffix_weighted.cu through g1_suffix_weighted.cuh) and the batched
+// product (fq_mul.cu).
 //
-// Same numbers as bls12_381.cuh: 12 x 32-bit limbs, little-endian, Montgomery
-// form with R = 2^384, every output canonical (< q).  Canonical Montgomery
-// residues are unique, so each function here returns the same words as its
-// bls12_381.cuh namesake and the fold stays array-equal to its plain version.
+// The numbers are the JAX package's: 12 x 32-bit limbs (its 24 16-bit limbs
+// in pairs), little-endian, Montgomery form with R = 2^384, every output
+// canonical (< q).  Canonical Montgomery residues are unique, so each
+// function here returns the same words as the JAX package's function of the
+// same sequence of field operations, and the kernels stay array-equal to
+// their plain versions.
 //
-// What differs is the instruction stream.  bls12_381.cuh writes the CIOS loop
-// in 64-bit C (`c += t + a*b; c >>= 32`), which compiles to a wide multiply
-// plus separate adds and shifts for every product.  Here each product is two
-// multiply-adds that carry in the condition-code flag:
+// A product is a CIOS loop in which each 32x32 product is two multiply-adds
+// that carry in the condition-code flag:
 //   mad.lo.cc / madc.lo.cc  t[j]   += lo(a_j * b) + carry
 //   madc.hi.cc              t[j+1] += hi(a_j * b) + carry
 // and the modular add and subtract run add.cc / sub.cc chains.  The
@@ -378,8 +379,8 @@ CC_HD Proj g1_madd(const Proj& p, const Fq& x2, const Fq& y2) {
 }
 
 // Complete addition P + Q (RCB16 algorithm 7, a = 0): 12 field multiplies in
-// the sequence of the JAX package's `_k_g1_add` (and of bls12_381.cuh's
-// cp::g1_add), so the output is the same projective representative.  Any
+// the sequence of the JAX package's `_k_g1_add`, so the output is the same
+// projective representative.  Any
 // canonical inputs, infinity (0 : y : 0) and the all-zero (0, 0, 0) rows of
 // the reference's padding included; t0, t1, t2, t3, t4 and x3 are six
 // independent products.

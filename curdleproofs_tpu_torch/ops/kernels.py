@@ -16,10 +16,9 @@ Kernels (sources in `../csrc/`, one shared object each):
 - `g1_fold_rows`       fold of gathered [24, T, S] rows    (g1_fold_rows.cu)
 - `g1_add_rows`        batched add on [24, N] 3-tuples     (launches g1_add.cu)
 
-Five sources run on the carry-chain field core `fq_cc.cuh`: fq_mul.cu,
-g1_add.cu, g1_fold_madd.cu, g1_suffix_weighted.cu and g1_sqrt.cu.
-`bls12_381.cuh` serves only g1_fold_packed.cu and g1_fold_rows.cu, which no
-main path launches.
+Every source runs on the carry-chain field core `fq_cc.cuh`; the two
+bucket folds share their repack, slot loop and launch (`g1_fold.cuh`) and
+differ in the row step.
 
 Each wrapper takes the reference layouts as int32 tensors (16-bit limbs
 `[24, ...]`, packed limb pairs `[12, ...]`; the kernels read them as
@@ -91,7 +90,7 @@ _ARGTYPES = {
     "g1_fold_madd": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64] + [_P] * 5,
     "g1_suffix_weighted": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
     "g1_suffix_weighted_tree": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
-    "g1_fold_packed": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64, _P, _P, _P, _P],
+    "g1_fold_packed": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64] + [_P] * 5,
     "g1_sqrt": [_P, _I64, _P, _P],
     "g1_fold_rows": [_P, _P, _P, ctypes.c_int, _I64, _P, _P, _P, _P],
 }
@@ -201,8 +200,9 @@ def build(force: bool = False) -> dict[str, str]:
 
 
 def ptxas_usage(report: str, kernel: str) -> dict[str, int]:
-    """`registers` and `spill_bytes` (stores + loads) that ptxas -v reported
-    for the kernel entry whose name contains `kernel`."""
+    """`registers`, `spill_bytes` (stores + loads) and `stack_bytes` (the
+    stack frame) that ptxas -v reported for the kernel entry whose name
+    contains `kernel`."""
     out, entry, props = {}, False, False
     for line in report.splitlines():
         if "Compiling entry function" in line:
@@ -215,6 +215,8 @@ def ptxas_usage(report: str, kernel: str) -> dict[str, int]:
         elif props and "spill" in line:
             out["spill_bytes"] = sum(
                 int(v) for v in re.findall(r"(\d+) bytes spill", line))
+            out["stack_bytes"] = int(re.search(r"(\d+) bytes stack frame",
+                                               line).group(1))
     return out
 
 
@@ -369,15 +371,12 @@ def g1_fold_madd(ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
     Montgomery (see `g1_fold_madd_plain` for the function)."""
     if _on_cpu(ext_px, ext_py, ext_zb, plan):
         return g1_fold_madd_plain(ext_px, ext_py, ext_zb, plan)
-    # [E, 24]: the kernel repacks the bases into it point-major first
-    pts = torch.empty((ext_px.shape[-1], L), dtype=torch.int32,
-                      device=plan.device)
-    return _fold_launch("g1_fold_madd", ext_px, ext_py, ext_zb, plan, pts)
+    return _fold_launch("g1_fold_madd", ext_px, ext_py, ext_zb, plan)
 
 
-def _fold_launch(name, ext_px, ext_py, ext_zb, plan, *scratch) -> PointsXYZ:
-    """Launch either fold kernel (one interface; a kernel's scratch tensors
-    go between its sizes and its outputs)."""
+def _fold_launch(name, ext_px, ext_py, ext_zb, plan) -> PointsXYZ:
+    """Launch either fold kernel (one interface, g1_fold.cuh's launch): it
+    repacks the bases point-major into an [E, 24] scratch, then folds."""
     n_ext = ext_px.shape[1]
     if ext_px.shape != (L // 2, n_ext) or ext_py.shape != ext_px.shape \
             or ext_zb.shape != (n_ext,) or plan.ndim != 2:
@@ -385,13 +384,14 @@ def _fold_launch(name, ext_px, ext_py, ext_zb, plan, *scratch) -> PointsXYZ:
     ext_px, ext_py, ext_zb, plan = (t.contiguous() for t in
                                     (ext_px, ext_py, ext_zb, plan))
     t_rows, s_pad = plan.shape
+    pts = torch.empty((n_ext, L), dtype=torch.int32, device=plan.device)
     outs = [torch.empty((L, s_pad), dtype=torch.int32, device=plan.device)
             for _ in range(3)]
     if s_pad:
         _launch(name, plan.device,
                 *(t.data_ptr() for t in (ext_px, ext_py, ext_zb, plan)),
                 n_ext, t_rows, s_pad,
-                *(t.data_ptr() for t in (*scratch, *outs)))
+                *(t.data_ptr() for t in (pts, *outs)))
     return PointsXYZ(*outs)
 
 

@@ -2,6 +2,7 @@
 
     python curdleproofs_tpu_torch/tools/kernel_probe.py trace [--tree DIR]
     python curdleproofs_tpu_torch/tools/kernel_probe.py suffix
+    python curdleproofs_tpu_torch/tools/kernel_probe.py fold [--tree DIR]
 
 `trace`: the l = 124 Whisk shuffle proof of `StdRng.seed_from_u64(0)` (the
 golden 4496 bytes, checked) on the card, after one untimed warm-up prove:
@@ -17,6 +18,14 @@ with one script.
 a sweep of WG, each timed with `graph_ms` in turns (chain, tree, tree,
 chain): the crossover that `kernels.SUFFIX_TREE_MAX_WG` is set from.
 
+`fold`: the three folds on the inputs `chip_smoke.py` checks them on
+(`fold_data`, `fold_inputs`: the 626k MSM's plan for g1_fold_madd and
+g1_fold_packed, [24, 8, 2^17] rows of it for g1_fold_rows), each kernel's
+device time by `graph_ms`, the ptxas registers and spills of each kernel
+this process built, and the plan's row kinds (`fold_row_kinds`).  With
+`--tree`, one process a tree, taken in turns, times two trees' kernels on
+one card.
+
 Each prints one JSON line; `nvidia-smi`'s name and power limit come first.
 """
 
@@ -25,11 +34,20 @@ from __future__ import annotations
 import argparse
 import json
 import pathlib
+import random
 import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
+
+# The 626k MSM (batch verification's deduped MSM at B = 1024, l = 252) whose
+# shapes `chip_smoke.py` and `fold` both measure the folds at: FOLD_TILE
+# random bases tiled to FOLD_N points, g1_fold_rows on the plan's first
+# FOLD_ROWS_S slots.
+FOLD_SEED = 2024
+FOLD_N, FOLD_TILE, FOLD_ROWS_S = 626_000, 4096, 1 << 17
 
 
 def graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
@@ -171,9 +189,137 @@ def suffix_sweep() -> dict:
     return {"suffix_sweep": rows}
 
 
+def _packed_col(v: int, dev) -> torch.Tensor:
+    """A Montgomery int as a [12, 1] column of packed limb pairs (int32
+    words, as the resident bases hold them)."""
+    w = np.array([(v >> (32 * i)) & 0xFFFFFFFF for i in range(12)],
+                 dtype=np.uint32)
+    return torch.from_numpy(w.view(np.int32)).to(dev)[:, None]
+
+
+def fold_row_kinds(ext_px, ext_py, ext_zb, plan) -> dict:
+    """Rows of a [T, S] fold plan over resident bases, by the field products
+    the full-add fold's words need (g1_fold.cuh): `live` 11 (the mixed add);
+    dead rows (T x S - live) with x = 0, `dead_pm1` 3 where y = +-one (the
+    ingest's infinities and sentinel) and `dead_y` 5 elsewhere; `dead_x` 12
+    (x not 0).  `products` is their sum, the least work that writes the
+    fold's words.  Warp rows (32 neighbouring slots in one row, as one warp
+    of the kernel meets them): `warp_live` all live, `warp_dead` all of the
+    (0 : y : 0) kind, `warp_mixed` the rest; `warp_products` the products
+    g1_fold_packed's warps execute (3, or 5 where a lane's y is not +-one, a
+    warp row of `warp_dead`; 12 any other)."""
+    from curdleproofs_tpu_torch.constants import Q
+    from curdleproofs_tpu_torch.ops.field import FQ
+
+    dev = plan.device
+    e = plan.long()
+    live = ext_zb[e] != 0
+    x0 = (ext_px == 0).all(0)[e]
+    pm1 = ((ext_py == _packed_col(FQ.one_mont, dev)).all(0)
+           | (ext_py == _packed_col(Q - FQ.one_mont, dev)).all(0))[e]
+    t_rows, s = plan.shape
+    n_live = int(live.sum())
+    kinds = {"rows": t_rows * s, "live": n_live,
+             "dead_pm1": int((~live & x0 & pm1).sum()),
+             "dead_y": int((~live & x0 & ~pm1).sum()),
+             "dead_x": int((~live & ~x0).sum())}
+    if n_live + kinds["dead_pm1"] + kinds["dead_y"] + kinds["dead_x"] \
+            != t_rows * s:
+        raise AssertionError(f"row kinds do not add up: {kinds}")
+    kinds["products"] = (11 * n_live + 3 * kinds["dead_pm1"]
+                         + 5 * kinds["dead_y"] + 12 * kinds["dead_x"])
+    pad = (-s) % 32
+
+    def warps(m, fill):  # lanes past S leave a warp's vote alone
+        return torch.nn.functional.pad(m, (0, pad), value=fill).reshape(
+            t_rows, -1, 32)
+
+    all_live = warps(live, True).all(-1)
+    all_dead = warps(~live & x0, True).all(-1)
+    some_y = warps(~live & x0 & ~pm1, False).any(-1)
+    mixed = ~all_live & ~all_dead
+    kinds.update({"warp_rows": all_live.numel(),
+                  "warp_live": int(all_live.sum()),
+                  "warp_dead": int(all_dead.sum()),
+                  "warp_mixed": int(mixed.sum())})
+    kinds["warp_products"] = (
+        12 * (kinds["warp_live"] + kinds["warp_mixed"])
+        + int((all_dead * (3 + 2 * some_y)).sum()))
+    return kinds
+
+
+def fold_data(rng, rnd) -> tuple[list, list, list]:
+    """(tile, points, scalars) of the 626k MSM: FOLD_TILE random bases drawn
+    first from `rng` (a `StdRng`), tiled to FOLD_N points, and FOLD_N
+    scalars drawn first from `rnd` (a `random.Random`); both generators
+    seeded FOLD_SEED by the caller, who may draw on from them."""
+    from curdleproofs_tpu_torch.constants import R
+
+    tile = [rng.rand_g1() for _ in range(FOLD_TILE)]
+    return (tile, [tile[i % FOLD_TILE] for i in range(FOLD_N)],
+            [rnd.randrange(R) for _ in range(FOLD_N)])
+
+
+def fold_inputs(bases, scalars):
+    """(params, ext, sp, rows): what the three folds take at the MSM of
+    `scalars` over resident `bases`.  `ext` is the bases' (ext_px, ext_py,
+    ext_zb), `sp` the MSM's slot plan (by `pick_params`; the folds take its
+    [T, S] `plan`), `rows` the [24, T, FOLD_ROWS_S] projective rows of the
+    plan's first slots for g1_fold_rows, z rebuilt from the liveness bit
+    (dead rows have z = 0)."""
+    from curdleproofs_tpu_torch.ops import msm_device as md
+    from curdleproofs_tpu_torch.ops.field import FQ, unpack_pairs
+
+    dev = bases.ext_px.device
+    params = md.pick_params(len(scalars))
+    limbs = torch.from_numpy(
+        md._scalars_to_limbs(scalars, params.n).astype(np.int32)).to(dev)
+    sp = md._slot_plan(md._signed_digits(limbs, params.n, params.c),
+                       n=params.n, c=params.c, t_rows=params.t_rows,
+                       s_pad=params.s_pad)
+    ext = (bases.ext_px, bases.ext_py, bases.ext_zb)
+    cols = sp.plan[:, :FOLD_ROWS_S].long()
+    one = FQ.const(1, (1, 1), dev)
+    rows = (unpack_pairs(ext[0][:, cols]).int(),
+            unpack_pairs(ext[1][:, cols]).int(),
+            torch.where(ext[2][cols][None] != 0, one, 0).int())
+    return params, ext, sp, rows
+
+
+def fold_probe() -> dict:
+    from curdleproofs_tpu_torch.host.rng import StdRng
+    from curdleproofs_tpu_torch.ops import kernels as K
+    from curdleproofs_tpu_torch.ops import msm_device as md
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    reports = K.build()
+    build_s = time.perf_counter() - t0
+    usage = {}
+    for src, rep in reports.items():
+        for entry in (f"{src}_kernel", "g1_fold_kernel"):
+            u = K.ptxas_usage(rep, entry)
+            if u:
+                usage[src] = u
+                break
+    _, pts, ss = fold_data(StdRng.seed_from_u64(FOLD_SEED),
+                           random.Random(FOLD_SEED))
+    _, ext, sp, rows = fold_inputs(md.DeviceBases(pts, dev), ss)
+    plan = sp.plan
+    ms = {name: graph_ms(lambda: getattr(K, name)(*ext, plan),
+                         per_graph=5, replays=4)
+          for name in ("g1_fold_madd", "g1_fold_packed")}
+    ms["g1_fold_rows"] = graph_ms(lambda: K.g1_fold_rows(*rows))
+    return {"fold_probe": {"tree": str(pathlib.Path(K.__file__).parents[2]),
+                           "build_s": build_s, "plan": list(plan.shape),
+                           "rows_shape": list(rows[0].shape),
+                           "kernel_ms": ms, "ptxas": usage,
+                           "row_kinds": fold_row_kinds(*ext, plan)}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("trace", "suffix"))
+    ap.add_argument("what", choices=("trace", "suffix", "fold"))
     ap.add_argument("--tree", type=pathlib.Path,
                     default=pathlib.Path(__file__).resolve().parents[2])
     args = ap.parse_args()
@@ -183,7 +329,8 @@ def main() -> int:
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
     print(card_line(), flush=True)
-    out = trace(tree) if args.what == "trace" else suffix_sweep()
+    out = (trace(tree) if args.what == "trace" else suffix_sweep()
+           if args.what == "suffix" else fold_probe())
     print(json.dumps(out))
     return 0
 

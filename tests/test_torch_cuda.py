@@ -254,6 +254,47 @@ def test_fold_madd_kernel_on_adversarial_plans(t_rows):
     assert pts_got[2] == G1.infinity()
 
 
+@pytest.mark.parametrize("t_rows", [8, 16])
+def test_fold_packed_kernel_on_adversarial_plans(t_rows):
+    """The full-add fold (carry-chain core, the warp's vote between the
+    scale of dead rows and the complete add) against its plain version on
+    `_adversarial_plan`'s plans, with whole warps of slots for each kind of
+    warp row: slots 128-159 all live, 160-191 all dead of the ingest's
+    kinds (the input infinity (0 : 1 : 0), its negation (0 : -1 : 0), the
+    sentinel: 3 products), 192-223 all dead with x = 0, among them
+    (0 : y : 0) with y not +-one (5 products); a dead row whose x is not 0
+    (a base with its liveness bit cleared) in slot 224 and in the mixed
+    slots 4-5; S = 300, not a multiple of a warp."""
+    dev = _card()
+    rng = StdRng.seed_from_u64(23)
+    pts = [rng.rand_g1() for _ in range(200)] + [G1.infinity()]
+    bases = md.DeviceBases(pts, "cpu")
+    n = bases.n
+    px, zb = bases.ext_px.clone(), bases.ext_zb.clone()
+    zb[[17, 19]] = 0                 # 17: dead, x != 0; 19: dead (0 : y : 0)
+    px[:, 19] = 0
+    plan = _adversarial_plan(n, t_rows, 300, seed=30 + t_rows)
+    r = np.random.default_rng(t_rows)
+    live = np.setdiff1d(np.arange(2 * n), [17, 19, 200, 200 + n])
+    plan[:, 128:160] = torch.from_numpy(
+        r.choice(live, size=(t_rows, 32)).astype(np.int32))
+    plan[:, 160:192] = torch.from_numpy(r.choice(
+        [200, 200 + n, 2 * n], size=(t_rows, 32)).astype(np.int32))
+    plan[:, 192:224] = torch.from_numpy(r.choice(
+        [19, 200, 200 + n, 2 * n], size=(t_rows, 32)).astype(np.int32))
+    plan[:, 192] = 19
+    plan[t_rows // 2, 224] = plan[0, 4] = plan[-1, 5] = 17
+    ext = (px, bases.ext_py, zb, plan)
+    before = kernels.LAUNCHES["g1_fold_packed"]
+    got = kernels.g1_fold_packed(*(t.to(dev) for t in ext))
+    assert kernels.LAUNCHES["g1_fold_packed"] == before + 1
+    want = kernels.g1_fold_packed_plain(*ext)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+    pts_got = points_from_device(PointsXYZ(*(c.cpu() for c in got)))
+    assert pts_got[0] == G1.infinity()
+    assert pts_got[1] == pts[5].mul(t_rows)
+
+
 def _general_rows(n: int, seed: int) -> PointsXYZ:
     """n points with a general z (complete sums of random pairs), on the
     CPU, with z = 0 (dead) in every 7th lane and infinity in every 11th."""
@@ -269,7 +310,7 @@ def _general_rows(n: int, seed: int) -> PointsXYZ:
     return PointsXYZ(x, y, z)
 
 
-@pytest.mark.parametrize("t_rows, s", [(8, 515), (1, 37)])
+@pytest.mark.parametrize("t_rows, s", [(8, 515), (1, 37), (1, 1), (5, 129)])
 def test_fold_rows_kernel_matches_plain(t_rows, s):
     """g1_fold_rows on [24, T, S] rows with dead rows (z = 0), infinities,
     P and -P in one column and one point repeated down another."""

@@ -100,17 +100,19 @@ def test_const_select_and_infinity_rows():
 
 
 def test_cuda_header_constants_match_field():
-    """The kernels' shared header hard-codes q, R mod q and -q^-1 mod 2^32
-    in 32-bit limbs; they must be this field's."""
-    src = (kernels.CSRC / "bls12_381.cuh").read_text()
+    """The kernels' field core hard-codes q, R mod q and -q^-1 mod 2^32 in
+    32-bit limbs (`q_limb`, `one_limb`, `N0` of fq_cc.cuh); they must be
+    this field's."""
+    src = (kernels.CSRC / "fq_cc.cuh").read_text()
 
     def limbs(name):
-        body = re.search(name + r"\[NL\] = \{([^}]*)\}", src).group(1)
-        words = [int(w.strip().rstrip("u"), 16)
-                 for w in body.split(",") if w.strip()]
+        body = re.search(r"constexpr uint32_t " + name + r"\(int i\) \{(.*?)\}",
+                         src, re.S).group(1)
+        words = [int(w, 16) for w in re.findall(r"0x([0-9a-f]+)u", body)]
+        assert len(words) == 12
         return sum(w << (32 * i) for i, w in enumerate(words))
 
-    assert limbs("Q") == Q
-    assert limbs("ONE_MONT") == FQ.one_mont
+    assert limbs("q_limb") == Q
+    assert limbs("one_limb") == FQ.one_mont
     n0 = int(re.search(r"N0 = (0x[0-9a-f]+)u", src).group(1), 16)
     assert n0 == (-pow(Q, -1, 1 << 32)) % (1 << 32)

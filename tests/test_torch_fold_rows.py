@@ -1,6 +1,11 @@
-"""The counterparts of the JAX package's last two TPU kernels, on the CPU,
-against the JAX package on the same inputs.
+"""The folds and the batched add of the port, on the CPU, against the JAX
+package on the same inputs.
 
+- `g1_fold_packed_plain` (the plain version of the full-add bucket fold
+  `g1_fold_packed`, for `g1_fold_rows_packed_pallas`) against the JAX
+  pipeline's full-add fold off the TPU, the `lax.scan` of `fold_step`
+  (curdleproofs_tpu/ops/msm_device.py:488-498, copied below), on the same
+  resident bases and plan;
 - `g1_fold_rows` (for `g1_fold_rows_pallas`) against a `lax.scan` of
   `_g1_add_jnp` over the T rows, as the JAX pipeline folds off the TPU
   (curdleproofs_tpu/ops/msm_device.py:491-498);
@@ -25,8 +30,12 @@ from jax import lax
 
 from curdleproofs_tpu.host.g1 import GENERATOR
 from curdleproofs_tpu.ops import g1_ops as jg
+from curdleproofs_tpu.ops import msm_device as jmd
+from curdleproofs_tpu.ops.field import FQ as JFQ
 from curdleproofs_tpu_torch.constants import Q
+from curdleproofs_tpu_torch.host.g1 import GENERATOR as TGEN
 from curdleproofs_tpu_torch.ops import kernels as K
+from curdleproofs_tpu_torch.ops import msm_device as md
 from curdleproofs_tpu_torch.ops.field import FQ
 from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ, points_from_device
 from curdleproofs_tpu_torch.host.g1 import G1 as TG1
@@ -146,3 +155,47 @@ def test_add_rows_matches_jax_complete_add():
     assert all(_eq(g, w) for g, w in zip(
         K.g1_add_rows_plain(PointsXYZ(*map(_torch, p)),
                             PointsXYZ(*map(_torch, q))), want))
+
+
+@jax.jit
+def _jax_fold_packed(ext_px, ext_py, ext_zb, plan):
+    """The JAX pipeline's full-add fold off the TPU (`fold_step` of
+    curdleproofs_tpu/ops/msm_device.py:488-498): the complete add of every
+    row of the plan, z rebuilt from the liveness bit."""
+    one_col = JFQ.const(1, (1,))
+
+    def fold_step(a, row):
+        qx = jmd._unpack_rows(jnp.take(ext_px, row, axis=1))
+        qy = jmd._unpack_rows(jnp.take(ext_py, row, axis=1))
+        zb = jnp.take(ext_zb, row)
+        qz = jnp.where(zb[None] != 0, one_col, jnp.uint32(0))
+        return jg._g1_add_jnp(a, jg.PointsXYZ(qx, qy, qz)), None
+
+    acc, _ = lax.scan(fold_step, jg.g1_infinity((plan.shape[1],)), plan)
+    return acc
+
+
+def test_fold_packed_plain_matches_jax_full_add_fold():
+    """On resident bases of 40 points (two of them infinity) and a [8, 70]
+    plan: live rows, input infinities and their negations, the sentinel,
+    an all-dead slot, one base 8 times, P then -P, dead rows inside live
+    prefixes and a ragged width."""
+    r = np.random.default_rng(53)
+    pts = [TGEN.mul(int(k)) for k in r.integers(1, 2**62, size=40)]
+    pts[6] = pts[13] = TG1.infinity()
+    b = md.DeviceBases(pts, "cpu")
+    n = b.n
+    plan = r.integers(0, 2 * n + 1, size=(T_ROWS, 70))
+    lengths = r.integers(0, T_ROWS + 1, size=70)
+    plan[np.arange(T_ROWS)[:, None] >= lengths[None, :]] = 2 * n
+    plan[r.random(plan.shape) < 0.05] = 2 * n
+    plan[:, 0] = 2 * n
+    plan[:, 1] = 5
+    plan[:, 2] = [7, 7 + n] * (T_ROWS // 2)
+    plan[:, 3] = [6, 6 + n, 13 + n, 9] * (T_ROWS // 4)
+    plan = torch.from_numpy(plan.astype(np.int32))
+    ext = (b.ext_px, b.ext_py, b.ext_zb)
+    got = K.g1_fold_packed_plain(*ext, plan)
+    want = _jax_fold_packed(*(jnp.asarray(t.numpy().view(np.uint32))
+                              for t in ext), jnp.asarray(plan.numpy()))
+    assert all(_eq(g, w) for g, w in zip(got, want))
