@@ -50,12 +50,31 @@ Phases (any failure exits non-zero; nothing is caught):
    through the device stream accepts it and rejects one swapped instance,
    and the one-MSM `batch_verify` gives the same verdicts.  No tuning
    table is shipped for the card, so the streamed run measures the untuned
-   50/50 split between the device stream and the host engine.
+   50/50 split between the device stream and the host engine;
+7. the batched prover (`parallel.batch_prove`, one grouped MSM dispatch a
+   folding round for the whole batch) on `TorchBackend()`:
+   (a) table mode at l = 252, B = 256 (the reference's batched
+   configuration): 8 proofs' bytes equal the port's sequential host
+   prover's, all 256 batch-verify on the card, one swapped instance is
+   rejected; then the fold at an IPA round's table plan (T = 136, over
+   this batch's 4,194,305-entry table), its repack alone in turns with it,
+   Horner's g1_add at 1536 lanes and fq_mul at the table's [24, 7N], each
+   against its plain version;
+   (b) slot mode (`CURDLEPROOFS_TABLE=0`) with the full-add fold at
+   l = 124, B = 16: every proof's bytes equal the sequential host
+   prover's, the merges made g1_add scan launches; then the full-add fold
+   on a same-msm round's slot plan and the suffix kernel's tree entry on
+   its c = 4 buckets, against their plain versions.
+   Each prints proofs/s against the sequential host prover's ms a proof,
+   `batch_prove.last_timings` (bases_s with the table build table_s,
+   pack_s, device_s, decode_s, host_other_s), peak memory and, per
+   dispatch, each stage's device ms and kernel launches (upload, recode,
+   plan, fold with its repack, merge, suffix, Horner).
 
 Kernel launches are counted for each driven path on its own (zeroed just
 before it, read just after it): the MSMs at 2^16 and 626k, the full-add
 MSM, the protocol run of phase 4 (l = 124 and l = 252 together), the Whisk
-chain and the batch verification.  Each path must launch every kernel
+chain, the batch verification and the two batched proves.  Each path must launch every kernel
 `EXPECTED` lists for it.  g1_fold_rows and g1_add_rows have no caller (none
 in the JAX package either): they are held against their plain versions in
 phase 2 and launch on no path.  The kernels' JSON record, on the line
@@ -95,10 +114,14 @@ MUL32_PER_FQ_SQR = 468      # 78 + 12 + 144 products (squaring, then reduction)
 N_SMALL = 1 << 16           # the c = 8 MSM family, and the kernels' width
 CHAIN_BLOCKS = 64           # phase 5: Whisk blocks in the synced chain
 BATCH_ELL, BATCH_B, BATCH_CHUNK = 252, 256, 64   # phase 6
+PROVE_ELL, PROVE_B, PROVE_CHECKED = 252, 256, 8   # phase 7 (a), table mode
+SLOT_ELL, SLOT_B = 124, 16                         # phase 7 (b), slot mode
 MAIN_PATH = "protocol l=124 + l=252"
 FULL_ADD_PATH = f"msm n={N_SMALL} full-add"
 CHAIN_PATH = f"whisk chain {CHAIN_BLOCKS} x l=124"
 BATCH_PATH = f"batch verify l={BATCH_ELL} B={BATCH_B}"
+TABLE_PATH = f"batch prove table l={PROVE_ELL} B={PROVE_B}"
+SLOT_PATH = f"batch prove slot l={SLOT_ELL} B={SLOT_B} full-add"
 REPLACES = {
     "fq_mul": "curdleproofs_tpu/ops/pallas_kernels.py:268",
     "g1_add": "curdleproofs_tpu/ops/pallas_kernels.py:282",
@@ -126,6 +149,13 @@ EXPECTED = {
     MAIN_PATH: _MSM8 | {"g1_sqrt"},
     CHAIN_PATH: _MSM8 | {"g1_sqrt"},
     BATCH_PATH: _MSM8 | {"g1_sqrt"},
+    # the batched prover: one compressed upload, the table's multiples and
+    # products (table mode), the fold, Horner's adds, leave-Montgomery; slot
+    # mode also the merge's scan steps (checked per stage) and the c = 4
+    # reduction, n_rel * 64 <= 8192 lanes: the tree entry
+    TABLE_PATH: {"fq_mul", "g1_add", "g1_fold_madd", "g1_sqrt"},
+    SLOT_PATH: {"fq_mul", "g1_add", "g1_fold_packed", "g1_sqrt",
+                "g1_suffix_weighted_tree"},
 }
 # each kernel's own main path, where it is not the protocol run
 OWN_PATH = {"g1_fold_packed": FULL_ADD_PATH, "g1_suffix_weighted": BIG_PATH}
@@ -725,6 +755,243 @@ def main() -> int:
         + json.dumps(batch_backend.engine_counts))
     for i, st in enumerate(dispatches):
         log(f"  stream dispatch {i}: stages ms {json.dumps(st)}")
+
+    # -- phase 7: the batched prover ------------------------------------------
+    from curdleproofs_tpu_torch.host.g1 import G1
+    from curdleproofs_tpu_torch.ops import msm_grouped as mg
+    from curdleproofs_tpu_torch.ops.field import unpack_pairs
+    from curdleproofs_tpu_torch.parallel import batch_prove as bp
+
+    def prove_instances(crs, ell, count, seed):
+        """`count` ProveInstances: one shared (R, S) from `seed` (the Whisk
+        shuffle-relay shape, as the reference's batched-prover bench builds
+        them), then per proof a permutation, k and blinders from its own
+        RNG, seeded seed + 1 + i, which the prover draws on."""
+        base = StdRng.seed_from_u64(seed)
+        vr = [base.rand_g1() for _ in range(ell)]
+        vs = [base.rand_g1() for _ in range(ell)]
+        out = []
+        with use_backend(HostBackend()) as hb:
+            for i in range(count):
+                g = StdRng.seed_from_u64(seed + 1 + i)
+                p_i = list(range(ell))
+                g.shuffle(p_i)
+                k_i = g.rand_fr()
+                rb_i = generate_blinders(g, 4)
+                m_i = msm(crs.vec_G, get_permutation(list(range(ell)), p_i)) \
+                    .add(msm(crs.vec_H, rb_i))
+                out.append(bp.ProveInstance(
+                    vr, vs, get_permutation(hb.batch_mul(vr, k_i), p_i),
+                    get_permutation(hb.batch_mul(vs, k_i), p_i), m_i, p_i,
+                    k_i, rb_i, g))
+        return out
+
+    def batch_run(path, crs, ell, count, seed, table, madd, n_check):
+        """`batch_prove` of `count` instances on `TorchBackend()`, counted
+        as `path`: the first `n_check` proofs' bytes against the port's
+        sequential host prover on twins of their instances; per dispatch,
+        each stage's device ms and kernel launches (CUDA events and launch
+        counts at every `mark`)."""
+        os.environ["CURDLEPROOFS_TABLE"] = "1" if table else "0"
+        twins = prove_instances(crs, ell, n_check, seed)
+        t0 = time.perf_counter()
+        with use_backend(HostBackend()):
+            want = [CurdleproofsProof.new(
+                crs, i.vec_R, i.vec_S, i.vec_T, i.vec_U, i.M, i.permutation,
+                i.k, i.vec_m_blinders, i.rng).serialize() for i in twins]
+        host_ms = (time.perf_counter() - t0) * 1e3 / n_check
+        t0 = time.perf_counter()
+        insts = prove_instances(crs, ell, count, seed)
+        gen_s = time.perf_counter() - t0
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev, dict(K.LAUNCHES)))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        with use_backend(TorchBackend()):
+            proofs = bp.batch_prove(crs, insts, madd=madd, mark=mark)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counted(path)
+        del os.environ["CURDLEPROOFS_TABLE"]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        unused = "g1_fold_madd" if not madd else "g1_fold_packed"
+        if by_path[path][unused]:
+            raise AssertionError(f"{path}: {unused} launched")
+        if [p.serialize() for p in proofs[:n_check]] != want:
+            raise AssertionError(f"{path}: proof bytes differ from the "
+                                 f"sequential host prover")
+        timings = dict(bp.batch_prove.last_timings)
+        starts = [i for i, m in enumerate(marks) if m[0] == "start"] \
+            + [len(marks)]
+        per = []
+        for a, b in zip(starts, starts[1:]):
+            per.append({s1: {"ms": e0.elapsed_time(e1), "launches": {
+                k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]}}
+                for (_, e0, n0), (s1, e1, n1) in zip(marks[a:b],
+                                                     marks[a + 1:b])})
+        if len(per) != timings["dispatches"]:
+            raise AssertionError(f"{path}: {len(per)} marked dispatches, "
+                                 f"{timings['dispatches']} timed")
+        stage_sum = {}
+        for st in per:
+            for k, v in st.items():
+                stage_sum[k] = stage_sum.get(k, 0.0) + v["ms"]
+        log(f"{path}: {n_check} proofs equal the sequential host prover's "
+            f"bytes; {count} proofs in {wall:.3f} s = {count / wall:.3f} "
+            f"proofs/s ({wall * 1e3 / count:.2f} ms a proof) against "
+            f"{host_ms:.2f} ms a proof on the host, sequential "
+            f"({1e3 / host_ms:.3f} proofs/s); peak {peak:.3f} GiB; "
+            f"instances made in {gen_s:.1f} s; timings "
+            + json.dumps(timings))
+        log(f"  stage ms summed over dispatches " + json.dumps(stage_sum))
+        for i, st in enumerate(per):
+            log(f"  dispatch {i}: " + json.dumps(st))
+        return insts, proofs, per
+
+    def shuffle_instances(insts):
+        return [bv.ShuffleInstance(i.vec_R, i.vec_S, i.vec_T, i.vec_U, i.M)
+                for i in insts]
+
+    # (a) table mode at the reference's batched configuration; the proofs
+    # batch-verify on the card, and one swapped instance fails the batch
+    crs = generate_crs(PROVE_ELL)
+    insts, proofs, _ = batch_run(TABLE_PATH, crs, PROVE_ELL, PROVE_B, 700,
+                                 True, True, PROVE_CHECKED)
+    shuffles = shuffle_instances(insts)
+    swap = shuffles[PROVE_B // 3]
+    bad = shuffles[:]
+    bad[PROVE_B // 3] = bv.ShuffleInstance(swap.vec_S, swap.vec_R,
+                                           swap.vec_T, swap.vec_U, swap.M)
+    vrng = StdRng.seed_from_u64(701)
+    with use_backend(TorchBackend()):
+        t0 = time.perf_counter()
+        ok = bv.batch_verify(crs, shuffles, proofs, vrng)
+        verify_ms = (time.perf_counter() - t0) * 1e3
+        rejected = not bv.batch_verify(crs, bad, proofs, vrng)
+    if not ok or not rejected:
+        raise AssertionError(f"{TABLE_PATH}: batch verify accepted {ok}, "
+                             f"swapped instance rejected {rejected}")
+    log(f"{TABLE_PATH}: all {PROVE_B} proofs batch-verify on the card in "
+        f"{verify_ms:.1f} ms; a swapped instance is rejected")
+
+    # the table path's kernels at its own shapes: the fold over the table
+    # residency of this batch (one IPA round: 4 relations a proof, n/2 + 1
+    # columns), its repack alone (the same launch with a plan of no rows),
+    # Horner's g1_add over a same-msm round's 6 B relations, fq_mul at the
+    # table's prefix products' [24, 7N]
+    combined = list(crs.vec_G) + list(crs.vec_H) + [
+        crs.H, crs.G_t, crs.G_u, G1.infinity()]
+    for i in insts:
+        combined += i.vec_R + i.vec_S + i.vec_T + i.vec_U
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    table = mg.DeviceBasesTable(md.DeviceBases(combined, dev))
+    torch.cuda.synchronize()
+    build_ms = (time.perf_counter() - t0) * 1e3
+    text = (table.ext_px, table.ext_py, table.ext_zb)
+    e_cnt = text[0].shape[1]
+    n_rel, width = 4 * PROVE_B, (PROVE_ELL + 4) // 2 + 1
+    rels = [([rnd.randrange(len(combined)) for _ in range(width)],
+             [rnd.randrange(R) for _ in range(width)]) for _ in range(n_rel)]
+    lt, ct = mg.upload_relations(
+        *mg.pack_relations(rels, n_rel, width, table.n), dev)
+    tplan = mg.table_plan(mg._digits(lt, n_rel, width), ct, table.n)
+    t_rows, s_pad = tplan.shape
+    tkinds = fold_row_kinds(*text, tplan)
+    tfold_bytes = (2 * 48 + 4) * e_cnt + 4 * t_rows * s_pad + 3 * 96 * s_pad
+    tacc = PointsXYZ(*check(
+        "g1_fold_madd", f"table plan [{t_rows}, {s_pad}] over {e_cnt} "
+        f"entries (an IPA round at l = {PROVE_ELL}, B = {PROVE_B})",
+        lambda: K.g1_fold_madd(*text, tplan),
+        lambda: K.g1_fold_madd_plain(*text, tplan), 3, tfold_bytes,
+        tkinds["live"] * 11 * MUL32_PER_FQ_MUL))
+    turns = {"fold": [], "repack": []}
+    for what in ("fold", "repack", "repack", "fold"):
+        rows_ = tplan if what == "fold" else tplan[:0]
+        turns[what].append(event_ms(lambda: K.g1_fold_madd(*text, rows_),
+                                    5)[1])
+    repack_ms, fold_ms = (sum(turns[k]) / 2 for k in ("repack", "fold"))
+    records["g1_fold_madd"]["table_repack"] = {
+        "entries": e_cnt, "scratch_bytes": 4 * 24 * e_cnt,
+        "turns": "fold, repack, repack, fold", "repack_ms": turns["repack"],
+        "fold_ms": turns["fold"], "share": repack_ms / fold_ms,
+        "table_build_ms": build_ms}
+    log(f"table of {len(combined)} bases ({e_cnt} entries) built in "
+        f"{build_ms:.1f} ms; in turns, the fold at [{t_rows}, {s_pad}] "
+        f"{turns['fold']} ms, its repack alone (a plan of no rows) "
+        f"{turns['repack']} ms: {100 * repack_ms / fold_ms:.1f}% of the "
+        f"fold, in every dispatch")
+    nh = 6 * PROVE_B
+    hp, hq = (PointsXYZ(*(c[:, o:o + nh].contiguous() for c in tacc))
+              for o in (0, nh))
+    check("g1_add", f"N = {nh} (Horner over a same-msm round's relations)",
+          lambda: K.g1_add(hp, hq), lambda: K.g1_add_plain(hp, hq), 100,
+          9 * 96 * nh, nh * 12 * MUL32_PER_FQ_MUL)
+    m7 = 7 * table.n
+    za, zb = (unpack_pairs(t[:, table.n:table.n + m7]).int()
+              for t in text[:2])
+    check("fq_mul", f"[24, {m7}] (the table's prefix products)",
+          lambda: (K.fq_mul(za, zb),), lambda: (K.fq_mul_plain(za, zb),), 20,
+          3 * 96 * m7, m7 * MUL32_PER_FQ_MUL)
+    del table, text, tplan, tacc, hp, hq, za, zb, lt, ct, proofs, shuffles
+    del bad, insts, combined
+
+    # (b) slot mode with the full-add fold, every proof's bytes checked
+    crs = generate_crs(SLOT_ELL)
+    insts, _, per = batch_run(SLOT_PATH, crs, SLOT_ELL, SLOT_B, 800, False,
+                              False, SLOT_B)
+    scans = sum(st.get("merge", {}).get("launches", {}).get("g1_add", 0)
+                for st in per)
+    if scans == 0:
+        raise AssertionError(f"{SLOT_PATH}: the merge made no g1_add scan "
+                             f"launches")
+    log(f"{SLOT_PATH}: {scans} g1_add scan launches in the merges")
+
+    # the slot path's kernels at its shapes: one same-msm round (6 relations
+    # a proof of n/2 columns) over this batch's resident bases: the full-add
+    # fold on its slot plan, the suffix kernel's tree entry on its buckets
+    combined = list(crs.vec_G) + list(crs.vec_H) + [
+        crs.H, crs.G_t, crs.G_u, G1.infinity()]
+    for i in insts:
+        combined += i.vec_R + i.vec_S + i.vec_T + i.vec_U
+    sb = md.DeviceBases(combined, dev)
+    width = (SLOT_ELL + 4) // 2
+    rels = [([rnd.randrange(len(combined)) for _ in range(width)],
+             [rnd.randrange(R) for _ in range(width)])
+            for _ in range(6 * SLOT_B)]
+    sparams = mg.pick_grouped_params(len(rels), width, sb.n)
+    lt, ct = mg.upload_relations(
+        *mg.pack_relations(rels, sparams.n_rel, width, sb.n), dev)
+    gp = mg.grouped_plan(mg._digits(lt, sparams.n_rel, width), ct, sparams)
+    sext = (sb.ext_px, sb.ext_py, sb.ext_zb)
+    skinds = fold_row_kinds(*sext, gp.plan)
+    t_rows, s_pad = gp.plan.shape
+    sacc = PointsXYZ(*check(
+        "g1_fold_packed", f"slot plan [{t_rows}, {s_pad}] over "
+        f"{sext[0].shape[1]} entries (a same-msm round at l = {SLOT_ELL}, "
+        f"B = {SLOT_B})", lambda: K.g1_fold_packed(*sext, gp.plan),
+        lambda: K.g1_fold_packed_plain(*sext, gp.plan), 5,
+        (2 * 48 + 4) * sext[0].shape[1] + 4 * t_rows * s_pad
+        + 3 * 96 * s_pad, skinds["products"] * MUL32_PER_FQ_MUL))
+    sacc = md._suffix_scan(sacc, gp.slot_gkey, gp.kmax)
+    one_m = FQ.const(1, (1, 1), dev)
+    sd = PointsXYZ(torch.where(gp.occ, sacc.x[:, gp.sel], 0),
+                   torch.where(gp.occ, sacc.y[:, gp.sel], one_m),
+                   torch.where(gp.occ, sacc.z[:, gp.sel], 0))
+    cb7, wg7 = sd.x.shape[1:]
+    check("g1_suffix_weighted_tree", f"Cb = {cb7}, WG = {wg7} (the c = 4 "
+          f"reduction of that round)",
+          lambda: sum(K.g1_suffix_weighted_tree(*sd), ()),
+          lambda: sum(K.g1_suffix_weighted_tree_plain(*sd), ()), 20,
+          *suffix_cost(cb7, wg7))
+    del sb, sext, gp, sacc, sd, lt, ct, insts, combined
 
     for name, rec in records.items():
         path = OWN_PATH.get(name, MAIN_PATH)

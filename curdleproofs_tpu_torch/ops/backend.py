@@ -11,11 +11,11 @@ the reference's `HybridBackend`.  `engine_counts` counts MSMs by engine.
 
 from __future__ import annotations
 
-from ..backend import Backend, HostBackend
+from ..backend import Backend, HostBackend, get_backend
 from ..host.g1 import G1
 from .device import resolve_device
 
-__all__ = ["TorchBackend"]
+__all__ = ["TorchBackend", "active_device"]
 
 
 class TorchBackend(Backend):
@@ -69,3 +69,14 @@ class TorchBackend(Backend):
     def fold_points_each(self, left: list[G1], right: list[G1],
                          scalars: list[int]) -> list[G1]:
         return self._host.fold_points_each(left, right, scalars)
+
+
+def active_device():
+    """The active `TorchBackend`'s device; `cuda` under any other backend
+    (which raises without a card, like every entry point).  Where the
+    device paths that bypass `msm` (batch verification's stream, the
+    batched prover) run."""
+    backend = get_backend()
+    if isinstance(backend, TorchBackend):
+        return backend.device
+    return resolve_device("cuda")

@@ -24,6 +24,7 @@ from ..curdleproofs import CurdleproofsProof
 from ..errors import VerificationError
 from ..host.rng import StdRng
 from ..msm_accumulator import MsmAccumulator
+from ..ops.backend import active_device
 
 __all__ = ["batch_verify", "ShuffleInstance", "plan_split_fraction"]
 
@@ -93,19 +94,6 @@ def plan_split_fraction(replay_s_per_chunk: float = 0.0,
     return max(0.0, min(1.0, (r + h) / (d + h - p_host)))
 
 
-def _stream_device():
-    """The active `TorchBackend`'s device; `cuda` under any other backend
-    (which raises without a card, like every entry point)."""
-    from ..backend import get_backend
-    from ..ops.backend import TorchBackend
-    from ..ops.device import resolve_device
-
-    backend = get_backend()
-    if isinstance(backend, TorchBackend):
-        return backend.device
-    return resolve_device("cuda")
-
-
 def _batch_verify_streamed(
     crs: CurdleproofsCrs,
     instances: list[ShuffleInstance],
@@ -132,7 +120,7 @@ def _batch_verify_streamed(
     from ..backend import HostBackend
     from ..ops.msm_device import STREAM_LOGN, DeviceMsmStream
 
-    device = _stream_device()
+    device = active_device()
     n_chunks = -(-len(proofs) // chunk)
     stream: DeviceMsmStream | None = None
     host_acc = MsmAccumulator()

@@ -271,11 +271,11 @@ def test_device_fault_is_raised_not_a_verdict(batches, monkeypatch):
 
 def test_stream_runs_on_the_backends_device():
     with use_backend(CPU):
-        assert bv._stream_device() == torch.device("cpu")
+        assert bv.active_device() == torch.device("cpu")
     if not torch.cuda.is_available():
         with use_backend(HostBackend()):
             with pytest.raises(RuntimeError, match="no CUDA device"):
-                bv._stream_device()
+                bv.active_device()
 
 
 # --------------------------------------------------------------------------

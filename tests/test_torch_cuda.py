@@ -518,3 +518,153 @@ def test_fq_mul_kernel_widths_and_broadcast(n):
         got = kernels.fq_mul(x.to(dev), y.to(dev))
         assert kernels.LAUNCHES["fq_mul"] == before + 1
         assert torch.equal(got.cpu(), kernels.fq_mul_plain(x, y))
+
+
+# --------------------------------------------------------------------------
+# the grouped MSM and the batched prover
+# --------------------------------------------------------------------------
+
+def _grouped_relations():
+    """A pool of 64 points and 12 relations over it: random widths up to
+    40, negatives, zeros, digits at half, a top-window carry, a repeated
+    base and one column."""
+    rng = StdRng.seed_from_u64(7)
+    pool = [rng.rand_g1() for _ in range(64)]
+    grnd = random.Random(3)
+    rels = []
+    for _ in range(6):
+        w = grnd.randrange(3, 41)
+        rels.append((grnd.sample(range(64), w),
+                     [grnd.randrange(R) for _ in range(w)]))
+    cols = list(range(8))
+    rels += [(cols, [R - 1] * 8), (cols, [0] * 8), (cols, [8] * 8),
+             (cols, [(1 << 252) + 7] * 8), ([3] * 8, [5] * 8),
+             ([9], [12345])]
+    return pool, rels
+
+
+def _grouped_inputs(rels, n_rel, width, dev):
+    from curdleproofs_tpu_torch.ops import msm_grouped as mg
+
+    return mg.upload_relations(*mg.pack_relations(rels, n_rel, width, 64),
+                               dev)
+
+
+@pytest.mark.parametrize("madd", [True, False])
+def test_grouped_slot_on_card(madd):
+    """Slot mode on the card: its plan equals the CPU's, its fold the plain
+    fold's words, its points the CPU run's and the host MSM's (the c = 4
+    reduction's 1,024 lanes go to the suffix kernel's tree entry, so the
+    window sums are other representatives: points compare)."""
+    from curdleproofs_tpu_torch.ops import msm_grouped as mg
+
+    dev = _card()
+    pool, rels = _grouped_relations()
+    cpu, card = md.DeviceBases(pool, "cpu"), md.DeviceBases(pool, dev)
+    width = max(len(c) for c, _ in rels)
+    params = mg.pick_grouped_params(len(rels), width, cpu.n)
+    plans = []
+    for b in (cpu, card):
+        lt, ct = _grouped_inputs(rels, params.n_rel, width, b.device)
+        digits = mg._digits(lt, params.n_rel, width)
+        plans.append(mg.grouped_plan(digits, ct, params))
+    assert torch.equal(plans[1].plan.cpu(), plans[0].plan)
+    assert torch.equal(plans[1].slot_gkey.cpu(), plans[0].slot_gkey)
+    fold, plain = ((kernels.g1_fold_madd, kernels.g1_fold_madd_plain) if madd
+                   else (kernels.g1_fold_packed, kernels.g1_fold_packed_plain))
+    got = fold(card.ext_px, card.ext_py, card.ext_zb, plans[1].plan)
+    want = plain(cpu.ext_px, cpu.ext_py, cpu.ext_zb, plans[0].plan)
+    assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want))
+
+    kernels.reset_launches()
+    pts = mg.grouped_msm(card, rels, madd=madd)
+    assert {k for k, v in kernels.LAUNCHES.items() if v} == {
+        "fq_mul", "g1_add", "g1_suffix_weighted_tree",
+        "g1_fold_madd" if madd else "g1_fold_packed"}
+    assert kernels.LAUNCHES["fq_mul"] == 1       # leave-Montgomery
+    host = [HostBackend().msm([pool[c] for c in cc], ss) for cc, ss in rels]
+    assert pts == host == mg.grouped_msm(cpu, rels, madd=madd)
+
+
+@pytest.mark.parametrize("madd", [True, False])
+def test_grouped_table_on_card(madd):
+    """Table mode on the card: the multiples table and the output are
+    array-equal to the CPU run's (no reduction step, so the same
+    representatives), the points the host MSM's."""
+    from curdleproofs_tpu_torch.ops import msm_grouped as mg
+
+    dev = _card()
+    pool, rels = _grouped_relations()
+    cpu_b = md.DeviceBases(pool[:60], "cpu")     # 4 dead padding bases
+    kernels.reset_launches()
+    card = mg.DeviceBasesTable(md.DeviceBases(pool[:60], dev))
+    assert kernels.LAUNCHES["g1_add"] == 7       # the multiples 2P..8P
+    cpu = mg.DeviceBasesTable(cpu_b)
+    for a, b in zip((card.ext_px, card.ext_py, card.ext_zb),
+                    (cpu.ext_px, cpu.ext_py, cpu.ext_zb)):
+        assert torch.equal(a.cpu(), b)
+    width = max(len(c) for c, _ in rels)
+    outs = []
+    for t in (card, cpu):
+        lt, ct = _grouped_inputs(rels, 16, width, t.device)
+        kernels.reset_launches()
+        outs.append(mg.grouped_table_run(t.ext_px, t.ext_py, t.ext_zb, lt, ct,
+                                         n_rel=16, width=width, n_base=t.n,
+                                         madd=madd).cpu())
+        if t is card:
+            assert {k for k, v in kernels.LAUNCHES.items() if v} == {
+                "fq_mul", "g1_add", "g1_fold_madd" if madd
+                else "g1_fold_packed"}
+            assert kernels.LAUNCHES["g1_add"] == 64 * 5   # Horner
+    assert torch.equal(outs[0], outs[1])
+    padded = pool[:60] + [G1.infinity()] * 4
+    host = [HostBackend().msm([padded[c] for c in cc], ss) for cc, ss in rels]
+    from curdleproofs_tpu_torch.ops.msm_grouped import decode_points
+
+    assert decode_points(outs[0].numpy())[: len(rels)] == host
+
+
+@pytest.mark.parametrize("table", ["1", "0"])
+def test_batch_prove_on_card(table, monkeypatch):
+    """The batched prover at l = 12 (3 instances) on `TorchBackend()`, in
+    table and slot mode: the sequential host prover's bytes."""
+    _card()
+    from curdleproofs_tpu_torch.backend import use_backend
+    from curdleproofs_tpu_torch.curdleproofs import (
+        CurdleproofsProof, generate_crs,
+    )
+    from curdleproofs_tpu_torch.ops.backend import TorchBackend
+    from curdleproofs_tpu_torch.parallel import batch_prove as bp
+    from curdleproofs_tpu_torch.util import shuffle_permute_and_commit_input
+
+    monkeypatch.setenv("CURDLEPROOFS_TABLE", table)
+    ell = 12
+
+    def instances():
+        out = []
+        with use_backend(HostBackend()):
+            crs = generate_crs(ell)
+            for i in range(3):
+                g = StdRng.seed_from_u64(40 + i)
+                vr = [g.rand_g1() for _ in range(ell)]
+                vs = [g.rand_g1() for _ in range(ell)]
+                perm = list(range(ell))
+                g.shuffle(perm)
+                k = g.rand_fr()
+                T, U, M, mb = shuffle_permute_and_commit_input(
+                    crs, vr, vs, perm, k, g)
+                out.append(bp.ProveInstance(vr, vs, T, U, M, perm, k, mb, g))
+        return crs, out
+
+    crs, insts = instances()
+    with use_backend(HostBackend()):
+        want = [CurdleproofsProof.new(
+            crs, i.vec_R, i.vec_S, i.vec_T, i.vec_U, i.M, i.permutation, i.k,
+            i.vec_m_blinders, i.rng).serialize() for i in insts]
+    crs, insts = instances()
+    kernels.reset_launches()
+    with use_backend(TorchBackend()):
+        got = bp.batch_prove(crs, insts)
+    assert [p.serialize() for p in got] == want
+    assert kernels.LAUNCHES["g1_sqrt"] == 1      # one compressed upload
+    assert bp.batch_prove.last_timings["dispatches"] == 12

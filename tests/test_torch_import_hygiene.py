@@ -37,6 +37,13 @@ with use_backend(TorchBackend(device="cpu")) as b:
     s.result()
     load_table("cpu")
     plan_split_fraction(device="cpu")
+from curdleproofs_tpu_torch.ops import msm_grouped as mg
+from curdleproofs_tpu_torch.ops.msm_device import DeviceBases
+from curdleproofs_tpu_torch.parallel.batch_prove import batch_prove
+table = mg.DeviceBasesTable(DeviceBases(pts, "cpu"))
+mg.grouped_msm_table(table, [([0, 1], [1, 2])])
+with use_backend(TorchBackend(device="cpu")):
+    batch_prove(None, [])
 from curdleproofs_tpu_torch.ops.g1_ops import g1_infinity
 K.g1_fold_rows(*g1_infinity((2, 3), "cpu"))
 K.g1_add_rows(g1_infinity((4,), "cpu"), g1_infinity((4,), "cpu"))
@@ -60,6 +67,8 @@ def test_port_sources_import_no_jax():
     files = sorted(_PKG.rglob("*.py")) + [_REPO / "chip_smoke.py"]
     assert len(files) > 20
     assert {_PKG / "parallel" / "batch_verify.py",
+            _PKG / "parallel" / "batch_prove.py",
+            _PKG / "ops" / "msm_grouped.py",
             _PKG / "ops" / "msm_tune.py"} <= set(files)
     offenders = [str(f.relative_to(_REPO)) for f in files
                  if pat.search(f.read_text())]
