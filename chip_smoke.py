@@ -4,31 +4,31 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. the card: name and power limit as nvidia-smi reports them;
-2. build the seven CUDA sources from `curdleproofs_tpu_torch/csrc/`, then
-   hold each of the nine kernel wrappers against its plain PyTorch version
-   on the card (array equality), timed with CUDA events: at the 626k MSM's
-   own shapes (both folds on its plan, the merge's g1_add over its slots and
-   its first scan step, the suffix kernel's chain entry, the reduction's
-   scan step over W*G = 32,768 chunks, fq_mul at leave-Montgomery's
-   [24, 3W], g1_sqrt over its 655,360 padded bases), g1_fold_rows on rows
-   gathered from the first 2^17 slots of that plan (z from the liveness
-   bit, so dead rows have z = 0), at the protocol's shapes from a real
-   c = 8 plan (both entries of the suffix kernel at Cb = 8, WG = 512, the
-   tree against `g1_suffix_weighted_tree_plain`, then timed against each
-   other in turns; fq_mul at leave-Montgomery's [24, 3W = 96]), fq_mul,
-   g1_add and g1_add_rows at 2^16, g1_add at 32,768 lanes (the 626k
-   reduction's W*G) and 512 lanes (the protocol's c = 8 W*G), and g1_sqrt
-   at n = 128 (a protocol MSM's padded bases).  The three folds, the two
-   suffix entries and fq_mul also carry `kernel_ms`, their device time
+2. build the eight CUDA sources from `curdleproofs_tpu_torch/csrc/`, then
+   hold each of the nine kernel wrappers of the MSM path against its plain
+   PyTorch version on the card (array equality), timed with CUDA events: at
+   the 626k MSM's own shapes (both folds on its plan, the merge's g1_add
+   over its slots and its first scan step, the suffix kernel's chain entry,
+   the reduction's scan step over W*G = 32,768 chunks, fq_mul at leave-
+   Montgomery's [24, 3W], g1_sqrt over its 655,360 padded bases),
+   g1_fold_rows on rows gathered from the first 2^17 slots of that plan (z
+   from the liveness bit, so dead rows have z = 0), at the protocol's
+   shapes from a real c = 8 plan (both entries of the suffix kernel at Cb =
+   8, WG = 512, the tree against `g1_suffix_weighted_tree_plain`, then
+   timed against each other in turns; fq_mul at leave-Montgomery's [24, 3W
+   = 96]), fq_mul, g1_add and g1_add_rows at 2^16, g1_add at 32,768 lanes
+   (the 626k reduction's W*G) and 512 lanes (the protocol's c = 8 W*G), and
+   g1_sqrt at n = 128 (a protocol MSM's padded bases). The three folds, the
+   two suffix entries and fq_mul also carry `kernel_ms`, their device time
    without host gaps (`kernel_probe.graph_ms`: launches captured in a CUDA
-   graph).  The ptxas registers, spills and stack of fq_mul, the three
+   graph). The ptxas registers, spills and stack of fq_mul, the three
    folds, g1_add, both suffix entries and g1_sqrt go into their records
    (g1_add's scan entry under `scan_registers`, `scan_spill_bytes`; the
    tree entry at Cb = 16 under `cb16_`), and the records of g1_fold_packed
    and g1_fold_rows their rows by kind (`kernel_probe.fold_row_kinds`, from
    which both kernels' bounds are counted); the 626k bases made resident
-   compressed (x + parity, y from g1_sqrt) and uncompressed must be
-   bit-identical, with each upload's wall time and bytes (after one untimed
+   compressed (x + parity, y from g1_sqrt) and uncompressed must be bit-
+   identical, with each upload's wall time and bytes (after one untimed
    warm-up upload, three timed uploads each way, in turns);
 3. the MSM at real size: `msm_device` at n = 2^16 (c = 8) and n = 626,000
    (c = 16, batch verification's deduped MSM at B = 1024, l = 252), each
@@ -71,17 +71,36 @@ Phases (any failure exits non-zero; nothing is caught):
    dispatch, each stage's device ms and kernel launches (upload, recode,
    plan, fold with its repack, merge, suffix, Horner).
 
+8. the reference's other backends and the CLI:
+   (a) the ladder kernel `g1_ladder` (csrc/g1_ladder.cu), its three entries
+   (one scalar, one a point, the fold) against `g1_ladder_plain` (array
+   equality) at n = 124 and 252 (the grand product's widths) and 2^16,
+   timed with CUDA events, with its ptxas record;
+   (b) phase 4's run on the all-device `DeviceBackend` (the reference's
+   `TpuBackend`): the golden l = 124 bytes, verify, tamper rejected, l = 252
+   proved and verified, the ladder launched on the path;
+   (c) the autotuner (`tools/msm_autotune.py`) at 2^10, 2^12, 2^14 and 2^16
+   into a temporary `CURDLEPROOFS_TUNE` table, every MSM equal to the
+   host's; then phase 4's run on `HybridBackend` untuned (no MSM and no
+   kernel on the card) and on that table (each MSM on the engine
+   `route_to_device` names); the prove and verify walls of every backend;
+   (d) `python -m curdleproofs_tpu_torch` shuffle-prove and shuffle-verify
+   in subprocesses under `CURDLEPROOFS_BACKEND=hybrid` and `tpu`, and
+   `info` naming the card.
+
 Kernel launches are counted for each driven path on its own (zeroed just
 before it, read just after it): the MSMs at 2^16 and 626k, the full-add
 MSM, the protocol run of phase 4 (l = 124 and l = 252 together), the Whisk
-chain, the batch verification and the two batched proves.  Each path must launch every kernel
-`EXPECTED` lists for it.  g1_fold_rows and g1_add_rows have no caller (none
-in the JAX package either): they are held against their plain versions in
-phase 2 and launch on no path.  The kernels' JSON record, on the line
-before the last, carries each kernel's counts on its own main path under
-`launches` (the protocol run; for g1_fold_packed the full-add MSM, for the
-suffix kernel's chain entry the 626k MSM, whose c = 16 reduction is the
-only one it serves; named in `launches_path`) and every path's under
+chain, the batch verification, the two batched proves, and phase 4's run on
+`DeviceBackend` and on `HybridBackend` (untuned and tuned). Each path must
+launch every kernel `EXPECTED` lists for it. g1_fold_rows and g1_add_rows
+have no caller (none in the JAX package either): they are held against
+their plain versions in phase 2 and launch on no path. The kernels' JSON
+record, on the line before the last, carries each kernel's counts on its
+own main path under `launches` (the protocol run; for g1_fold_packed the
+full-add MSM, for the suffix kernel's chain entry the 626k MSM, whose c =
+16 reduction is the only one it serves, for g1_ladder the run on
+`DeviceBackend`; named in `launches_path`) and every path's under
 `launches_by_path`; the last line is the device record.
 """
 
@@ -93,6 +112,7 @@ import pathlib
 import random
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -122,6 +142,10 @@ CHAIN_PATH = f"whisk chain {CHAIN_BLOCKS} x l=124"
 BATCH_PATH = f"batch verify l={BATCH_ELL} B={BATCH_B}"
 TABLE_PATH = f"batch prove table l={PROVE_ELL} B={PROVE_B}"
 SLOT_PATH = f"batch prove slot l={SLOT_ELL} B={SLOT_B} full-add"
+DEVICE_PATH = f"{MAIN_PATH} on DeviceBackend"
+HYBRID_UNTUNED = f"{MAIN_PATH} on HybridBackend, untuned"
+HYBRID_TUNED = f"{MAIN_PATH} on HybridBackend, autotuned table"
+TUNE_LOGNS = (10, 12, 14, 16)                      # phase 8 (c)
 REPLACES = {
     "fq_mul": "curdleproofs_tpu/ops/pallas_kernels.py:268",
     "g1_add": "curdleproofs_tpu/ops/pallas_kernels.py:282",
@@ -132,6 +156,7 @@ REPLACES = {
     "g1_sqrt": "curdleproofs_tpu/ops/pallas_kernels.py:201",
     "g1_fold_rows": "curdleproofs_tpu/ops/pallas_kernels.py:453",
     "g1_add_rows": "curdleproofs_tpu/ops/pallas_kernels.py:526",
+    "g1_ladder": "curdleproofs_tpu/ops/msm.py:73",
 }
 NO_CALLER = {"g1_fold_rows", "g1_add_rows"}
 BIG_PATH = f"msm n={N_BIG}"
@@ -156,9 +181,17 @@ EXPECTED = {
     TABLE_PATH: {"fq_mul", "g1_add", "g1_fold_madd", "g1_sqrt"},
     SLOT_PATH: {"fq_mul", "g1_add", "g1_fold_packed", "g1_sqrt",
                 "g1_suffix_weighted_tree"},
+    # the all-device backend: the MSMs from 8 points, and the ladder for
+    # the commitment's and the grand product's scalar multiplications
+    DEVICE_PATH: _MSM8 | {"g1_sqrt", "g1_ladder"},
+    # HybridBackend: untuned no MSM of a prove reaches the card (all under
+    # 2^16 points); on the table, wherever `route_to_device` says
+    HYBRID_UNTUNED: set(),
+    HYBRID_TUNED: set(),
 }
 # each kernel's own main path, where it is not the protocol run
-OWN_PATH = {"g1_fold_packed": FULL_ADD_PATH, "g1_suffix_weighted": BIG_PATH}
+OWN_PATH = {"g1_fold_packed": FULL_ADD_PATH, "g1_suffix_weighted": BIG_PATH,
+            "g1_ladder": DEVICE_PATH}
 
 
 def log(*a):
@@ -596,47 +629,61 @@ def main() -> int:
     del big_bases, small_bases
 
     golden = GOLDEN.read_text().strip()
-    backend = TorchBackend()
-    with use_backend(backend):
-        rng = StdRng.seed_from_u64(0)
-        crs = CurdleproofsCrs.generate_crs(WHISK_ELL)
-        pre = [WhiskTracker.from_rand(rng) for _ in range(WHISK_ELL)]
-        torch.cuda.synchronize()
-        K.reset_launches()
-        t0 = time.perf_counter()
-        post, proof = generate_whisk_shuffle_proof(rng, crs, pre)
-        prove_ms = (time.perf_counter() - t0) * 1e3
-        if proof.hex() != golden or len(proof) != 4496:
-            raise AssertionError("l=124 whisk shuffle proof differs from the "
-                                 "golden vector")
-        t0 = time.perf_counter()
-        ok = is_valid_whisk_shuffle_proof(rng, crs, pre, post, proof)
-        verify_ms = (time.perf_counter() - t0) * 1e3
-        tampered = [WhiskTracker.from_rand(StdRng.seed_from_u64(9))] + post[1:]
-        if not ok or is_valid_whisk_shuffle_proof(rng, crs, pre, tampered,
-                                                  proof):
-            raise AssertionError("whisk verification accepted/rejected wrongly")
-        log(f"whisk l=124: proof equals the golden 4496 bytes; prove "
-            f"{prove_ms:.1f} ms, verify {verify_ms:.1f} ms, tamper rejected")
 
-        ell = 252
-        rng = StdRng.seed_from_u64(252)
-        crs = generate_crs(ell)
-        perm = list(range(ell))
-        rng.shuffle(perm)
-        k = rng.rand_fr()
-        vr = [rng.rand_g1() for _ in range(ell)]
-        vs = [rng.rand_g1() for _ in range(ell)]
-        T, U, M, mb = shuffle_permute_and_commit_input(crs, vr, vs, perm, k,
-                                                       rng)
-        t0 = time.perf_counter()
-        pr = CurdleproofsProof.new(crs, vr, vs, T, U, M, perm, k, mb, rng)
-        prove_ms = (time.perf_counter() - t0) * 1e3
-        t0 = time.perf_counter()
-        pr.verify(crs, vr, vs, T, U, M, rng)   # raises VerificationError
-        verify_ms = (time.perf_counter() - t0) * 1e3
-        log(f"l=252: prove {prove_ms:.1f} ms, verify {verify_ms:.1f} ms, "
-            f"{len(pr.serialize())} bytes")
+    def protocol_run(backend, label: str) -> dict:
+        """On `backend`: the Whisk shuffle proof at l = 124 from
+        `StdRng.seed_from_u64(0)` must equal the golden 4496 bytes, verify,
+        and fail with a tampered post-tracker; then prove and verify at
+        l = 252.  Launch counts are zeroed just before the l = 124 prove;
+        returns the walls in ms."""
+        walls = {}
+        with use_backend(backend):
+            rng = StdRng.seed_from_u64(0)
+            crs = CurdleproofsCrs.generate_crs(WHISK_ELL)
+            pre = [WhiskTracker.from_rand(rng) for _ in range(WHISK_ELL)]
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            post, proof = generate_whisk_shuffle_proof(rng, crs, pre)
+            walls["l124_prove_ms"] = (time.perf_counter() - t0) * 1e3
+            if proof.hex() != golden or len(proof) != 4496:
+                raise AssertionError(f"{label}: l=124 whisk shuffle proof "
+                                     f"differs from the golden vector")
+            t0 = time.perf_counter()
+            ok = is_valid_whisk_shuffle_proof(rng, crs, pre, post, proof)
+            walls["l124_verify_ms"] = (time.perf_counter() - t0) * 1e3
+            tampered = [WhiskTracker.from_rand(StdRng.seed_from_u64(9))] \
+                + post[1:]
+            if not ok or is_valid_whisk_shuffle_proof(rng, crs, pre,
+                                                      tampered, proof):
+                raise AssertionError(f"{label}: whisk verification "
+                                     f"accepted/rejected wrongly")
+            log(f"{label}: whisk l=124 proof equals the golden 4496 bytes; "
+                f"prove {walls['l124_prove_ms']:.1f} ms, verify "
+                f"{walls['l124_verify_ms']:.1f} ms, tamper rejected")
+
+            ell = 252
+            rng = StdRng.seed_from_u64(252)
+            crs = generate_crs(ell)
+            perm = list(range(ell))
+            rng.shuffle(perm)
+            k = rng.rand_fr()
+            vr = [rng.rand_g1() for _ in range(ell)]
+            vs = [rng.rand_g1() for _ in range(ell)]
+            T, U, M, mb = shuffle_permute_and_commit_input(crs, vr, vs, perm,
+                                                           k, rng)
+            t0 = time.perf_counter()
+            pr = CurdleproofsProof.new(crs, vr, vs, T, U, M, perm, k, mb, rng)
+            walls["l252_prove_ms"] = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            pr.verify(crs, vr, vs, T, U, M, rng)   # raises VerificationError
+            walls["l252_verify_ms"] = (time.perf_counter() - t0) * 1e3
+        log(f"{label}: l=252 prove {walls['l252_prove_ms']:.1f} ms, verify "
+            f"{walls['l252_verify_ms']:.1f} ms, {len(pr.serialize())} bytes")
+        return walls
+
+    backend = TorchBackend()
+    prove_walls = {"TorchBackend": protocol_run(backend, "TorchBackend")}
     counted(MAIN_PATH)
     log(f"msm engines on {MAIN_PATH}: {json.dumps(backend.engine_counts)}")
     if backend.engine_counts["device"] == 0:
@@ -992,6 +1039,154 @@ def main() -> int:
           lambda: sum(K.g1_suffix_weighted_tree_plain(*sd), ()), 20,
           *suffix_cost(cb7, wg7))
     del sb, sext, gp, sacc, sd, lt, ct, insts, combined
+
+    # -- phase 8: the reference's other backends ------------------------------
+    from curdleproofs_tpu_torch.ops import msm as ladders
+    from curdleproofs_tpu_torch.ops import msm_tune
+    from curdleproofs_tpu_torch.ops.backend import DeviceBackend, HybridBackend
+    from curdleproofs_tpu_torch.ops.limbs import ints_to_bits
+    from curdleproofs_tpu_torch.tools.msm_autotune import tune
+
+    # (a) the ladder kernel's three entries against its plain version at the
+    # grand product's widths (l = 124, 252) and at 2^16.  The bound counts
+    # the 32-bit multiplies the function needs on these scalars: below the
+    # top set bit (whose doubling and add act on infinity and are free) a
+    # doubling a step (6 products, 2 squarings) and an add (12 products) a
+    # set bit, and the fold's last add; the per-point entry computes every
+    # step's add and selects, so it does more than its bound counts.
+    def ladder_mul32(k: int) -> int:
+        steps = max(k.bit_length() - 1, 0)
+        adds = max(bin(k).count("1") - 1, 0)
+        return (steps * (6 * MUL32_PER_FQ_MUL + 2 * MUL32_PER_FQ_SQR)
+                + adds * 12 * MUL32_PER_FQ_MUL)
+
+    for n in (124, 252, N_SMALL):
+        pl = points_to_device(tiled(n, 17), dev)
+        left = points_to_device(tiled(n, 5), dev)
+        k, gamma = rnd.randrange(R), rnd.randrange(R)
+        each = [rnd.randrange(R) for _ in range(n)]
+        reps = 20 if n < N_SMALL else 3
+        for entry, words, lf, mul32 in (
+                ("batch_mul", ladders.scalar_words(
+                    ints_to_bits([k], ladders.NBITS)[0], dev), None,
+                 n * ladder_mul32(k)),
+                ("batch_mul_each", ladders.scalar_words(
+                    ints_to_bits(each, ladders.NBITS), dev, True), None,
+                 sum(ladder_mul32(s) for s in each)),
+                ("fold", ladders.scalar_words(
+                    ints_to_bits([gamma], ladders.NBITS)[0], dev), left,
+                 n * (ladder_mul32(gamma) + 12 * MUL32_PER_FQ_MUL))):
+            nbytes = (6 if lf else 3) * 96 * n + 3 * 96 * n \
+                + 4 * words.numel()
+            check("g1_ladder", f"{entry}, n = {n}",
+                  lambda: K.g1_ladder(pl, words, lf),
+                  lambda: K.g1_ladder_plain(pl, words, lf), reps, nbytes,
+                  mul32)
+    for entry, prefix in (("g1_ladder_kernelILb1ELb0E", ""),
+                          ("g1_ladder_kernelILb0ELb0E", "each_"),
+                          ("g1_ladder_kernelILb1ELb1E", "fold_")):
+        with_ptxas("g1_ladder", entry, prefix)
+    del pl, left
+
+    # (b) the all-device backend (CURDLEPROOFS_BACKEND=tpu): phase 4's run,
+    # the ladder on the path
+    dbackend = DeviceBackend()
+    prove_walls["DeviceBackend"] = protocol_run(dbackend, "DeviceBackend")
+    counted(DEVICE_PATH)
+    log(f"msm engines on {DEVICE_PATH}: "
+        + json.dumps(dbackend.engine_counts))
+
+    # (c) the autotuner into a table of its own, then HybridBackend untuned
+    # and on that table: every MSM where `route_to_device` (or, untuned,
+    # the reference's fallback) puts it
+    routes = []
+    route = msm_tune.route_to_device
+
+    def traced_route(n, resident, device="cuda"):
+        v = route(n, resident, device)
+        routes.append((n, resident, v))
+        return v
+
+    msm_tune.route_to_device = traced_route
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, path in (("HybridBackend untuned", HYBRID_UNTUNED),
+                            ("HybridBackend tuned", HYBRID_TUNED)):
+            table = pathlib.Path(tmp) / "msm_tune.json"
+            os.environ["CURDLEPROOFS_TUNE"] = str(table)
+            msm_tune._load_raw.cache_clear()
+            if path == HYBRID_TUNED:
+                t0 = time.perf_counter()
+                tuned = tune(TUNE_LOGNS, dev, log=log)
+                log(f"autotuner at 2^{TUNE_LOGNS}: every MSM equal to the "
+                    f"host's, {time.perf_counter() - t0:.1f} s; table "
+                    + table.read_text().replace("\n", " "))
+                if sorted(tuned) != [1 << e for e in TUNE_LOGNS] or \
+                        set(msm_tune.load_table(dev)) != set(tuned):
+                    raise AssertionError("the autotuner's table misses a "
+                                         "family")
+            routes.clear()
+            hbackend = HybridBackend()
+            prove_walls[label] = protocol_run(hbackend, label)
+            counted(path)
+            to_dev = sum(1 for _, _, v in routes if v)
+            verdicts = {v for _, _, v in routes}
+            log(f"{label}: msm engines {json.dumps(hbackend.engine_counts)}; "
+                f"{len(routes)} routing verdicts, {to_dev} to the card")
+            if path == HYBRID_UNTUNED and (
+                    verdicts - {None} or hbackend.engine_counts["device"]
+                    or any(by_path[path].values())):
+                raise AssertionError(f"{label}: an MSM or a kernel reached "
+                                     f"the card")
+            if path == HYBRID_TUNED and (
+                    None in verdicts
+                    or hbackend.engine_counts != {
+                        "device": to_dev, "host": len(routes) - to_dev}):
+                raise AssertionError(f"{label}: engine counts "
+                                     f"{hbackend.engine_counts} do not follow "
+                                     f"the table's verdicts {routes}")
+        del os.environ["CURDLEPROOFS_TUNE"]
+        msm_tune._load_raw.cache_clear()
+    msm_tune.route_to_device = route
+    log("prove and verify walls (ms) by backend: " + json.dumps(prove_walls))
+
+    # (d) the CLI round trip in subprocesses, under hybrid and tpu
+    with tempfile.TemporaryDirectory() as tmp:
+        d = pathlib.Path(tmp)
+        trng = StdRng.seed_from_u64(5)
+        trk = [WhiskTracker.from_rand(trng) for _ in range(WHISK_ELL)]
+        (d / "pre.json").write_text(json.dumps(
+            [{"r_G": "0x" + t.r_G.hex(), "k_r_G": "0x" + t.k_r_G.hex()}
+             for t in trk]))
+
+        def cli(backend_name, *args):
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, "-m", "curdleproofs_tpu_torch", *args],
+                cwd=ROOT, capture_output=True, text=True, timeout=600,
+                env={**os.environ, "CURDLEPROOFS_BACKEND": backend_name})
+            return r, (time.perf_counter() - t0) * 1e3
+
+        r, _ = cli("host", "crs", "--ell", str(WHISK_ELL), "-o",
+                   str(d / "crs.json"))
+        if r.returncode:
+            raise AssertionError(f"cli crs failed: {r.stderr[-2000:]}")
+        files = ["--crs", str(d / "crs.json"), "--pre", str(d / "pre.json"),
+                 "--post", str(d / "post.json"), "--proof", str(d / "p.bin")]
+        for name in ("hybrid", "tpu"):
+            rp, prove_s = cli(name, "shuffle-prove", *files, "--seed", "7")
+            rv, verify_s = cli(name, "shuffle-verify", *files)
+            if rp.returncode or rv.returncode or "valid" not in rv.stdout:
+                raise AssertionError(f"cli round trip under {name}: "
+                                     f"{rp.stderr[-2000:]}{rv.stderr[-2000:]}")
+            log(f"cli under CURDLEPROOFS_BACKEND={name}: shuffle-prove "
+                f"{prove_s:.0f} ms, shuffle-verify {verify_s:.0f} ms "
+                f"(processes): {rv.stdout.strip()}")
+        r, _ = cli("tpu", "info")
+        info = json.loads(r.stdout) if r.returncode == 0 else {}
+        if info.get("device") != kind or "g1_ladder" not in info.get(
+                "kernels_built", ()):
+            raise AssertionError(f"cli info: {r.stdout}{r.stderr[-2000:]}")
+        log("cli info: " + json.dumps(info))
 
     for name, rec in records.items():
         path = OWN_PATH.get(name, MAIN_PATH)

@@ -6,8 +6,9 @@ the one switch that decides where every hot vector primitive runs.
 The protocol layer is backend-agnostic: every hot vector primitive (MSM, batched
 scalar-mul, point folding) dispatches through the active backend. `HostBackend`
 is the latency-optimal native/Python path for small n and the golden model;
-`TorchBackend` (in `curdleproofs_tpu_torch.ops.backend`) runs the MSMs on a
-CUDA card through the hand-written Pippenger kernels.
+`TorchBackend`, `HybridBackend` and `DeviceBackend` (in
+`curdleproofs_tpu_torch.ops.backend`) run MSMs, and the last also the
+ladders, on a CUDA card through the hand-written kernels.
 """
 
 from __future__ import annotations
@@ -18,9 +19,16 @@ __all__ = ["Backend", "HostBackend", "get_backend", "set_backend", "use_backend"
 
 
 class Backend:
-    """Interface: all inputs/outputs are host `G1` objects / int scalars."""
+    """Interface: all inputs/outputs are host `G1` objects / int scalars.
+
+    `native_prove_loops`: whether the provers run all of a folding
+    argument's rounds in one native call (`ipa.py`, `same_msm.py`) when the
+    library and a native transcript are there, as the reference does under
+    every backend.  Bit-identical either way; a backend that wants the
+    rounds' MSMs and folds dispatched through it turns it off."""
 
     name = "abstract"
+    native_prove_loops = True
 
     def msm(self, points: list[G1], scalars: list[int]) -> G1:
         raise NotImplementedError
@@ -168,11 +176,16 @@ def _pippenger(points: list[G1], scalars: list[int], window: int | None = None) 
 
 
 def _backend_from_env() -> Backend:
-    """Resolve CURDLEPROOFS_BACKEND: torch (the default) | host | pure.
+    """Resolve CURDLEPROOFS_BACKEND: torch (the default) | host | tpu |
+    hybrid | pure | auto, the reference's names plus the port's `torch`.
 
-    `torch` is the device backend on `cuda`; constructing it raises when no
-    card is present, so a program that wants the CPU says so (`host`/`pure`,
-    or `set_backend`/`use_backend` with a CPU backend)."""
+    `torch` is `TorchBackend`, `hybrid` `HybridBackend`, `tpu` the
+    all-device `DeviceBackend` (the reference's `TpuBackend`), `auto`
+    `auto_backend()`, which is `HybridBackend`; each runs on `cuda` and
+    raises when no card is present (the reference's `auto` falls back to
+    the host there), so a program that wants the CPU says so (`host`/`pure`,
+    or `set_backend`/`use_backend` with a CPU backend).  An unknown name
+    raises."""
     import os
 
     name = os.environ.get("CURDLEPROOFS_BACKEND", "torch").lower()
@@ -180,11 +193,14 @@ def _backend_from_env() -> Backend:
         return HostBackend()
     if name in ("pure", "python", "pure-python"):
         return PurePythonBackend()
-    if name != "torch":
+    if name not in ("torch", "hybrid", "tpu", "auto"):
         raise ValueError(f"unknown CURDLEPROOFS_BACKEND={name!r}")
-    from .ops.backend import TorchBackend
+    from .ops import backend as ops_backend
 
-    return TorchBackend()
+    return {"torch": ops_backend.TorchBackend,
+            "hybrid": ops_backend.HybridBackend,
+            "tpu": ops_backend.DeviceBackend,
+            "auto": ops_backend.auto_backend}[name]()
 
 
 _active: Backend | None = None

@@ -1,11 +1,12 @@
-// BLS12-381 base field and the complete adds (mixed and full) on carry
-// chains: the port's field core.  Every kernel runs on it: the bucket folds
-// (g1_fold_madd.cu and g1_fold_packed.cu through g1_fold.cuh), the fold of
-// gathered rows (g1_fold_rows.cu through g1_fold_rows.cuh), the complete add
-// and the scan step around it (g1_add.cu), the square root of compressed
-// ingest (g1_sqrt.cu through g1_sqrt.cuh), the bucket reduction's inner step
-// (g1_suffix_weighted.cu through g1_suffix_weighted.cuh) and the batched
-// product (fq_mul.cu).
+// BLS12-381 base field, the complete adds (mixed and full) and the complete
+// doubling on carry chains: the port's field core.  Every kernel runs on it:
+// the bucket folds (g1_fold_madd.cu and g1_fold_packed.cu through
+// g1_fold.cuh), the fold of gathered rows (g1_fold_rows.cu through
+// g1_fold_rows.cuh), the complete add and the scan step around it
+// (g1_add.cu), the square root of compressed ingest (g1_sqrt.cu through
+// g1_sqrt.cuh), the bucket reduction's inner step (g1_suffix_weighted.cu
+// through g1_suffix_weighted.cuh), the batched product (fq_mul.cu) and the
+// double-and-add ladders (g1_ladder.cu).
 //
 // The numbers are the JAX package's: 12 x 32-bit limbs (its 24 16-bit limbs
 // in pairs), little-endian, Montgomery form with R = 2^384, every output
@@ -404,6 +405,34 @@ CC_HD Proj g1_add(const Proj& p, const Proj& q) {
   r.x = fq_sub(fq_mul(t3, t1), fq_mul(t4, y3));
   r.y = fq_add(fq_mul(y3, t0), fq_mul(t1, z3));
   r.z = fq_add(fq_mul(z3, t4), fq_mul(t0, t3));
+  return r;
+}
+
+// Complete doubling (RCB16 algorithm 9, a = 0): 8 field multiplies in the
+// sequence of the port's `g1_ops.g1_double` (the JAX package's `g1_double`),
+// 3b * t2 by four adds as in the adds above, so the output is the same
+// projective representative.  Canonical inputs give canonical outputs (every
+// step reduces fully), which `g1_add` needs; infinity (0 : 1 : 0) doubles to
+// itself word for word.
+CC_HD Proj g1_double(const Proj& p) {
+  Fq t0 = fq_mul(p.y, p.y);
+  Fq z3 = fq_add(t0, t0);
+  z3 = fq_add(z3, z3);
+  z3 = fq_add(z3, z3);
+  Fq t1 = fq_mul(p.y, p.z);
+  Fq t2 = fq_mul_b3(fq_mul(p.z, p.z));
+  Fq x3 = fq_mul(t2, z3);
+  Fq y3 = fq_add(t0, t2);
+  z3 = fq_mul(t1, z3);
+  t1 = fq_add(t2, t2);
+  t2 = fq_add(t1, t2);
+  t0 = fq_sub(t0, t2);
+  y3 = fq_add(x3, fq_mul(t0, y3));
+  x3 = fq_mul(t0, fq_mul(p.x, p.y));
+  Proj r;
+  r.x = fq_add(x3, x3);
+  r.y = y3;
+  r.z = z3;
   return r;
 }
 

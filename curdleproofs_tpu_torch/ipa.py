@@ -7,7 +7,7 @@ s_i = prod gamma_j^{b_ij} and defers two MSM checks to the accumulator.
 
 from __future__ import annotations
 
-from .backend import HostBackend, get_backend
+from .backend import get_backend
 from .constants import R
 from .errors import VerificationError
 from .host.field import batch_inversion, fr_inv
@@ -105,12 +105,11 @@ class InnerProductProof:
         H = crs_H.mul(beta)
 
         # Step 2: log n folding rounds — all rounds in one native call when
-        # the host backend is active and the library and a native transcript
-        # are available (bit-identical; the Python loop below is the fallback
-        # and the spec).  Any other backend takes the loop, so the rounds'
-        # MSMs and folds dispatch through it.
-        blob = (transcript.native_blob() if isinstance(backend, HostBackend)
-                else None)
+        # the backend allows it (`native_prove_loops`) and the library and a
+        # native transcript are available (bit-identical; the Python loop
+        # below is the fallback and the spec).  A backend that turns it off
+        # takes the loop, so the rounds' MSMs and folds dispatch through it.
+        blob = transcript.native_blob() if backend.native_prove_loops else None
         if blob is not None:
             from .host import native
 

@@ -6,10 +6,10 @@ The complete formulas (Renes-Costello-Batina 2016, algorithms 7/8/9 for
 a = 0) have no exceptional cases, so they vectorise with no control flow.
 
 `g1_add` launches the `g1_add` CUDA kernel for points on the card
-(ops/kernels.py); `g1_add64`/`g1_madd64` are the plain int64 formulas that
-the kernels' plain versions run.  Each follows the JAX package's operation
-sequence (`_k_g1_add`, `_k_g1_madd`), so both give the same projective
-representatives as the reference.
+(ops/kernels.py); `g1_add64`/`g1_madd64`/`g1_double64` are the plain int64
+formulas that the kernels' plain versions run.  Each follows the JAX
+package's operation sequence (`_k_g1_add`, `_k_g1_madd`, `g1_double`), so
+all give the same projective representatives as the reference.
 """
 
 from __future__ import annotations
@@ -27,8 +27,8 @@ from .field import FQ
 from .limbs import FQ_LIMBS, ints_to_limbs, limbs_to_ints
 
 __all__ = ["PointsXYZ", "g1_add", "g1_add64", "g1_madd64", "g1_double",
-           "g1_select", "g1_infinity", "g1_infinity64", "points_to_device",
-           "points_from_device"]
+           "g1_double64", "g1_select", "g1_infinity", "g1_infinity64",
+           "points_to_device", "points_from_device"]
 
 _B3 = 3 * CURVE_B  # 12
 
@@ -109,6 +109,30 @@ def g1_madd64(p: PointsXYZ, x2: torch.Tensor, y2: torch.Tensor) -> PointsXYZ:
     X3 = sub(m[:, 0], m[:, 1])
     yz = add(m[:, 2:6:2], m[:, 3:6:2])
     return PointsXYZ(X3, yz[:, 0], yz[:, 1])
+
+
+def g1_double64(p: PointsXYZ) -> PointsXYZ:
+    """Complete doubling, a = 0 (RCB16 algorithm 9) on int64 limbs: the
+    sequence of `g1_double`, with its independent field ops stacked (each
+    op's result is the same canonical residue; 3b * t2 by four adds, as
+    the adds do it)."""
+    X, Y, Z = p
+    mul, add, sub = FQ.mul64, FQ.add64, FQ.sub64
+
+    m = mul(_st(Y, Y, Z, X), _st(Y, Z, Z, Y))
+    t0, t1, xy = m[:, 0], m[:, 1], m[:, 3]
+    # 3b * Z^2 = 8 Z^2 + 4 Z^2 beside Z3 = 8 t0, by the same doublings
+    d2 = add(_st(m[:, 2], t0), _st(m[:, 2], t0))
+    d4 = add(d2, d2)
+    d8 = add(d4, d4)
+    t2, z3 = add(d8[:, 0], d4[:, 0]), d8[:, 1]
+    m = mul(_st(t2, t1), _st(z3, z3))
+    s = add(_st(t0, t2), _st(t2, t2))          # Y3 = t0 + t2, 2 t2
+    y3 = s[:, 0]
+    t0 = sub(t0, add(s[:, 1], t2))
+    m2 = mul(_st(t0, t0), _st(y3, xy))
+    x3y3 = add(_st(m2[:, 1], m[:, 0]), _st(m2[:, 1], m2[:, 0]))
+    return PointsXYZ(x3y3[:, 0], x3y3[:, 1], m[:, 1])
 
 
 # --- int32 point ops -----------------------------------------------------------

@@ -15,6 +15,9 @@ Kernels (sources in `../csrc/`, one shared object each):
 - `g1_sqrt`            y from x, compressed base ingest    (g1_sqrt.cu)
 - `g1_fold_rows`       fold of gathered [24, T, S] rows    (g1_fold_rows.cu)
 - `g1_add_rows`        batched add on [24, N] 3-tuples     (launches g1_add.cu)
+- `g1_ladder`          255-step double-and-add ladders:    (g1_ladder.cu)
+                       k * P (one scalar), k_i * P_i and
+                       L + k * R, one entry each
 
 Every source runs on the carry-chain field core `fq_cc.cuh`; the two
 bucket folds share their repack, slot loop and launch (`g1_fold.cuh`) and
@@ -27,7 +30,8 @@ tensor it launches the kernel, or raises.  `LAUNCHES` counts kernel launches
 per wrapper, so a run can show its main path went through the kernels
 (`g1_add_rows` counts its own launches of g1_add.cu's entry; `g1_add_scan`
 counts under `g1_add`; the tree entry of g1_suffix_weighted.cu counts under
-`g1_suffix_weighted_tree`).
+`g1_suffix_weighted_tree`; the ladder's three entries count under
+`g1_ladder`).
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into `../_build/cuda/`
 at first use, one process per source, all started together (`build()`),
@@ -51,7 +55,9 @@ import torch
 
 from ..constants import CURVE_B, Q
 from .field import FQ, limb_col, mul_rows, unpack_pairs
-from .g1_ops import PointsXYZ, g1_add64, g1_infinity64, g1_madd64
+from .g1_ops import (
+    PointsXYZ, g1_add64, g1_double64, g1_infinity64, g1_madd64, g1_select,
+)
 from .limbs import FQ_LIMBS as L
 
 __all__ = ["KERNELS", "LAUNCHES", "SQRT_DIGITS", "build", "reset_launches",
@@ -64,11 +70,12 @@ __all__ = ["KERNELS", "LAUNCHES", "SQRT_DIGITS", "build", "reset_launches",
            "g1_suffix_weighted_tree", "g1_suffix_weighted_tree_plain",
            "suffix_uses_tree",
            "g1_sqrt", "g1_sqrt_plain", "g1_fold_rows", "g1_fold_rows_plain",
-           "g1_add_rows", "g1_add_rows_plain", "source_of", "ptxas_usage"]
+           "g1_add_rows", "g1_add_rows_plain", "g1_ladder",
+           "g1_ladder_plain", "source_of", "ptxas_usage"]
 
 KERNELS = ("fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted",
            "g1_suffix_weighted_tree", "g1_fold_packed", "g1_sqrt",
-           "g1_fold_rows", "g1_add_rows")
+           "g1_fold_rows", "g1_add_rows", "g1_ladder")
 # the wrappers that launch another kernel's source (and its C entry)
 _SHARES_SOURCE = {"g1_add_rows": "g1_add",
                   "g1_suffix_weighted_tree": "g1_suffix_weighted"}
@@ -93,6 +100,9 @@ _ARGTYPES = {
     "g1_fold_packed": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64] + [_P] * 5,
     "g1_sqrt": [_P, _I64, _P, _P],
     "g1_fold_rows": [_P, _P, _P, ctypes.c_int, _I64, _P, _P, _P, _P],
+    "g1_batch_mul": [_P] * 7 + [_I64, _P],
+    "g1_batch_mul_each": [_P] * 7 + [_I64, _P],
+    "g1_fold": [_P] * 10 + [_I64, _P],
 }
 
 
@@ -619,4 +629,70 @@ def g1_add_rows(p: PointsXYZ, q: PointsXYZ) -> PointsXYZ:
     if shape[1]:
         _launch("g1_add_rows", ins[0].device,
                 *(t.data_ptr() for t in (*ins, *outs)), shape[1])
+    return PointsXYZ(*outs)
+
+
+# --------------------------------------------------------------------------
+# g1_ladder
+# --------------------------------------------------------------------------
+
+LADDER_BITS = 255  # scalars below r < 2^255
+
+
+def _bit(words: torch.Tensor, i: int) -> torch.Tensor:
+    """Bit i of [8] or [8, N] int32 scalar words (little-endian): [] or [N]."""
+    return ((words[i >> 5].long() & 0xFFFFFFFF) >> (i & 31)) & 1
+
+
+def g1_ladder_plain(points: PointsXYZ, words: torch.Tensor,
+                    left: PointsXYZ | None = None) -> PointsXYZ:
+    """k * P for [24, N] points and scalars k as int32 words, [8] (one
+    scalar for every point) or [8, N] (one a point): from acc = infinity,
+    for bit 254 down to 0, acc = double(acc), then acc + P where the bit is
+    set, the reference's `lax.scan` step (curdleproofs_tpu/ops/msm.py; with
+    one scalar a point both sides are computed and selected, as there).
+    With `left`, left + k * P (its `fold_kernel`)."""
+    n = points.x.shape[1]
+    p = PointsXYZ(*(c.long() for c in points))
+    acc = g1_infinity64((n,), points.x.device)
+    for i in range(LADDER_BITS - 1, -1, -1):
+        acc = g1_double64(acc)
+        bit = _bit(words, i)
+        if words.ndim == 2:
+            acc = g1_select(bit.bool(), g1_add64(acc, p), acc)
+        elif bit:   # one scalar: the select would keep acc on a zero bit
+            acc = g1_add64(acc, p)
+    if left is not None:
+        acc = g1_add64(PointsXYZ(*(c.long() for c in left)), acc)
+    return PointsXYZ(*(c.int() for c in acc))
+
+
+def g1_ladder(points: PointsXYZ, words: torch.Tensor,
+              left: PointsXYZ | None = None) -> PointsXYZ:
+    """`g1_ladder_plain` in one launch: entry `cp_g1_batch_mul` for [8]
+    words, `cp_g1_batch_mul_each` for [8, N], `cp_g1_fold` for [8] words
+    with `left`."""
+    ins = (*points, words, *(left or ()))
+    if _on_cpu(*ins):
+        return g1_ladder_plain(points, words, left)
+    n = points.x.shape[1] if points.x.ndim == 2 else -1
+    uniform = words.shape == (8,)
+    if n < 0 or any(c.shape != (L, n) for c in (*points, *(left or ()))) \
+            or not (uniform or words.shape == (8, n)) \
+            or (left is not None and not uniform):
+        raise ValueError("the ladder takes [24, N] limb tensors, [8] or "
+                         "[8, N] scalar words, and one scalar for a fold")
+    ins = [t.contiguous() for t in ins]
+    outs = [torch.empty((L, n), dtype=torch.int32, device=words.device)
+            for _ in range(3)]
+    if not n:
+        return PointsXYZ(*outs)
+    ptrs = [t.data_ptr() for t in ins]
+    if left is not None:   # left, then right and the words, as cp_g1_fold
+        ptrs = ptrs[4:] + ptrs[:4]
+        entry = "g1_fold"
+    else:
+        entry = "g1_batch_mul" if uniform else "g1_batch_mul_each"
+    _launch("g1_ladder", words.device, *ptrs,
+            *(o.data_ptr() for o in outs), n, entry=entry)
     return PointsXYZ(*outs)

@@ -100,11 +100,16 @@ def slot_bound(n: int, w_cnt: int, c: int, t: int) -> int:
     return _round_up(s, 512)
 
 
-def pick_params(n: int, c: int | None = None) -> MsmParams:
-    """Shape family for n points.  The port has no tuned table for this card
-    yet, so an unpinned c takes the reference's untuned switch: c = 8 below
-    2^19 padded points, else 16."""
+def pick_params(n: int, c: int | None = None, device="cuda") -> MsmParams:
+    """Shape family for n points on `device`.  An unpinned c is the tune
+    table's measured winner for this family on `device`'s type
+    (`msm_tune.tuned_c`); untuned, the reference's switch: c = 8 below 2^19
+    padded points, else 16."""
     n = pad_n(n)
+    if c is None:
+        from .msm_tune import tuned_c
+
+        c = tuned_c(n, device)
     if c is None:
         c = 8 if n < (1 << 19) else 16
     if c not in (8, 16):
@@ -255,7 +260,7 @@ def prepare_bases(points: list[G1], device="cuda") -> DeviceBases:
     after being passed here (protocol code never mutates base lists: they
     are CRS fields or freshly built).  Pass a `DeviceBases` to `msm_device`
     to manage residency yourself."""
-    key = (id(points), str(resolve_device(device)))
+    key = _bases_key(points, device)
     hit = _BASES_CACHE.get(key)
     if hit is not None and hit[0] is points:
         return hit[1]
@@ -264,6 +269,16 @@ def prepare_bases(points: list[G1], device="cuda") -> DeviceBases:
         _BASES_CACHE.clear()
     _BASES_CACHE[key] = (points, db)
     return db
+
+
+def is_resident(points: list[G1], device="cuda") -> bool:
+    """Whether `prepare_bases` holds this exact list on `device` already."""
+    hit = _BASES_CACHE.get(_bases_key(points, device))
+    return hit is not None and hit[0] is points
+
+
+def _bases_key(points: list[G1], device) -> tuple:
+    return id(points), str(resolve_device(device))
 
 
 def _scalar_bytes(scalars: "list[int] | bytes") -> bytes:
@@ -568,7 +583,8 @@ def msm_device(points: "list[G1] | DeviceBases",
         bases = prepare_bases(points, device)
     if _scalars_len(scalars) != n_real:
         raise ValueError("points/scalars length mismatch")
-    params = pick_params(bases.n, c)  # pad_n fixed point: params.n == bases.n
+    # pad_n fixed point: params.n == bases.n
+    params = pick_params(bases.n, c, bases.device)
     if params.n != bases.n:
         raise ValueError("bases padded under a different shape family")
     out = _dispatch_pipeline(bases, scalars, params, mark, madd)
@@ -596,10 +612,10 @@ def _horner_windows(win: list[G1], c_bits: int) -> G1:
 STREAM_LOGN = 16  # the streamed-batch chunk family: n = 2^16 per dispatch
 
 
-def stream_params(c: int | None = None) -> MsmParams:
+def stream_params(c: int | None = None, device="cuda") -> MsmParams:
     """The one fixed shape family every default `DeviceMsmStream` dispatch
-    uses, whatever sizes `add()` receives."""
-    return pick_params(1 << STREAM_LOGN, c)
+    on `device` uses, whatever sizes `add()` receives."""
+    return pick_params(1 << STREAM_LOGN, c, device)
 
 
 class DeviceMsmStream:
@@ -630,8 +646,8 @@ class DeviceMsmStream:
                  async_worker: bool = False, device="cuda", mark=None,
                  madd=True):
         self.device = resolve_device(device)
-        self.params = (stream_params(c) if n_chunk is None
-                       else pick_params(n_chunk, c))
+        self.params = (stream_params(c, self.device) if n_chunk is None
+                       else pick_params(n_chunk, c, self.device))
         self.mark = mark
         self.madd = madd
         self._async = async_worker

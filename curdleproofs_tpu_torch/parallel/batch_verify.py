@@ -64,7 +64,7 @@ def plan_split_fraction(replay_s_per_chunk: float = 0.0,
     from ..ops.msm_device import stream_params
     from ..ops.msm_tune import load_table
 
-    n_fam = stream_params().n
+    n_fam = stream_params(device=device).n
     entry = load_table(device).get(n_fam)
     if entry is None:
         return 0.5

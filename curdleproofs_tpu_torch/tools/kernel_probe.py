@@ -271,7 +271,7 @@ def fold_inputs(bases, scalars):
     from curdleproofs_tpu_torch.ops.field import FQ, unpack_pairs
 
     dev = bases.ext_px.device
-    params = md.pick_params(len(scalars))
+    params = md.pick_params(len(scalars), device=dev)
     limbs = torch.from_numpy(
         md._scalars_to_limbs(scalars, params.n).astype(np.int32)).to(dev)
     sp = md._slot_plan(md._signed_digits(limbs, params.n, params.c),

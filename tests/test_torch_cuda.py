@@ -668,3 +668,121 @@ def test_batch_prove_on_card(table, monkeypatch):
     assert [p.serialize() for p in got] == want
     assert kernels.LAUNCHES["g1_sqrt"] == 1      # one compressed upload
     assert bp.batch_prove.last_timings["dispatches"] == 12
+
+
+def _ladder_points(n: int, seed: int):
+    """n host points (lane 1 at infinity) and their [24, n] int32 limbs on
+    the CPU as projective representatives (l x : l y : l), where every
+    third lane from 2 on takes the l that puts x, y or z (in turn) at
+    q - 1 - lane in Montgomery form: inputs near q."""
+    rng = StdRng.seed_from_u64(seed)
+    pts = [rng.rand_g1() for _ in range(n)]
+    pts[1] = G1.infinity()
+    cols = []
+    for j, p in enumerate(pts):
+        if p.is_infinity():
+            cols.append([0, FQ.to_mont(1), 0])
+            continue
+        c = [*p.to_affine(), 1]
+        if j >= 2 and j % 3 == 2:
+            lam = FQ.from_mont(Q - 1 - j) * pow(c[j % 9 // 3], -1, Q) % Q
+        else:
+            lam = rnd.randrange(1, Q)
+        cols.append([FQ.to_mont(v * lam % Q) for v in c])
+    limbs = PointsXYZ(*(torch.from_numpy(ints_to_limbs(list(col), FQ_LIMBS)
+                                         .T.astype(np.int32))
+                        for col in zip(*cols)))
+    return pts, limbs
+
+
+@pytest.mark.parametrize("n", [8, 124])
+def test_ladder_kernel_entries_match_plain(n):
+    """The three entries of g1_ladder.cu against `g1_ladder_plain`, array
+    equality, on inputs near q and infinity: one scalar (0, 1, 2, r - 1 and
+    a random one at n = 8), one a point, and the fold; the results against
+    the host's multiples."""
+    dev = _card()
+    from curdleproofs_tpu_torch.ops import msm
+    from curdleproofs_tpu_torch.ops.limbs import ints_to_bits
+
+    pts, p = _ladder_points(n, 30 + n)
+    left_pts, left = _ladder_points(n, 31 + n)
+    on = (lambda v: PointsXYZ(*(c.to(dev) for c in v)))
+    ks = [0, 1, 2, R - 1, rnd.randrange(R)] if n == 8 else [rnd.randrange(R)]
+    each = [0, 1, 2, R - 1] + [rnd.randrange(R) for _ in range(n - 4)]
+    cases = [(k, msm.scalar_words(ints_to_bits([k], msm.NBITS)[0], "cpu"),
+              None) for k in ks]
+    cases.append((each, msm.scalar_words(ints_to_bits(each, msm.NBITS),
+                                         "cpu", True), None))
+    gamma = rnd.randrange(R)
+    cases.append((gamma, msm.scalar_words(
+        ints_to_bits([gamma], msm.NBITS)[0], "cpu"), left))
+    for k, words, lf in cases:
+        before = kernels.LAUNCHES["g1_ladder"]
+        got = kernels.g1_ladder(on(p), words.to(dev),
+                                None if lf is None else on(lf))
+        assert kernels.LAUNCHES["g1_ladder"] == before + 1
+        got = PointsXYZ(*(c.cpu() for c in got))
+        want = kernels.g1_ladder_plain(p, words, lf)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        ks_ = k if isinstance(k, list) else [k] * n
+        host = [q.mul(s) for q, s in zip(pts, ks_)]
+        if lf is not None:
+            host = [a.add(b) for a, b in zip(left_pts, host)]
+        assert points_from_device(got) == host
+
+
+def test_device_backend_on_card():
+    """The all-device backend's ladder ops on the card against the host
+    backend; each is one g1_ladder launch."""
+    _card()
+    from curdleproofs_tpu_torch.ops.backend import DeviceBackend
+
+    rng = StdRng.seed_from_u64(33)
+    pts = [rng.rand_g1() for _ in range(40)]
+    ks = [rnd.randrange(R) for _ in range(40)]
+    b, h = DeviceBackend(), HostBackend()
+    kernels.reset_launches()
+    assert b.batch_mul(pts, ks[0]) == h.batch_mul(pts, ks[0])
+    assert b.batch_mul_each(pts, ks) == h.batch_mul_each(pts, ks)
+    assert b.fold_points(pts[:20], pts[20:], ks[1]) == h.fold_points(
+        pts[:20], pts[20:], ks[1])
+    assert kernels.LAUNCHES["g1_ladder"] == 3
+    assert b.msm(pts, ks) == h.msm(pts, ks) and b.last_msm_engine == "device"
+
+
+def test_hybrid_backend_routes_as_the_table_says(tmp_path, monkeypatch):
+    """With a table for the card, HybridBackend puts an MSM on the card
+    exactly where `route_to_device` says: fresh bases to the host, the
+    same bases once resident to the card.  A `"cpu"` entry that would say
+    otherwise changes nothing on the card."""
+    _card()
+    import json
+
+    from curdleproofs_tpu_torch.ops import msm_tune
+    from curdleproofs_tpu_torch.ops.backend import HybridBackend
+
+    path = tmp_path / "tune.json"
+    path.write_text(json.dumps({
+        "cuda": {"1024": {"c": 8, "device_warm_ms": 1.0,
+                          "fresh_prep_ms": 100.0, "host_ms": 50.0}},
+        "cpu": {"1024": {"c": 8, "device_warm_ms": 0.0,
+                         "fresh_prep_ms": 0.0, "host_ms": 50.0}}}))
+    monkeypatch.setenv("CURDLEPROOFS_TUNE", str(path))
+    msm_tune._load_raw.cache_clear()
+    try:
+        rng = StdRng.seed_from_u64(34)
+        pts = [rng.rand_g1() for _ in range(300)]
+        ss = [rnd.randrange(R) for _ in range(300)]
+        want = HostBackend().msm(pts, ss)
+        b = HybridBackend()
+        assert msm_tune.route_to_device(300, False) is False
+        assert b.msm(pts, ss) == want and b.last_msm_engine == "host"
+        md.prepare_bases(pts, "cuda")
+        assert msm_tune.route_to_device(300, True) is True
+        kernels.reset_launches()
+        assert b.msm(pts, ss) == want and b.last_msm_engine == "device"
+        assert kernels.LAUNCHES["g1_fold_madd"] == 1
+        assert b.engine_counts == {"device": 1, "host": 1}
+    finally:
+        msm_tune._load_raw.cache_clear()
