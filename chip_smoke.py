@@ -87,19 +87,47 @@ Phases (any failure exits non-zero; nothing is caught):
    (d) `python -m curdleproofs_tpu_torch` shuffle-prove and shuffle-verify
    in subprocesses under `CURDLEPROOFS_BACKEND=hybrid` and `tpu`, and
    `info` naming the card.
+9. multi-device on one card (`parallel/sharded_msm.py`,
+   `parallel/distributed.py`), on logical grids: every cell of a (Dp, Dw)
+   grid is cuda:0 and the cells run one after another, so the times show
+   what sharding costs on one card, not how it scales:
+   (a) the suffix kernel, the chunk suffix's scan step, the points-axis
+   reduce's g1_add and leave-Montgomery's fq_mul at a window shard's shapes
+   against their plain versions; `sharded_msm` at n = 64 on grids (1, 1),
+   (2, 1), (4, 1), (4, 2), (8, 1), (2, 2) and (6, 1) (not a power of two:
+   the host combines) and at a ragged n = 37 on (8, 1), each equal to the host MSM;
+   phase 3's 626k MSM on (4, 2) and (8, 1), equal to phase 3's host result,
+   with each cell's stage device ms, the points-axis reduce's, the host
+   combine's, the wall and the peak memory, beside the unsharded
+   `msm_device` wall on the same inputs;
+   (b) under `CURDLEPROOFS_MADD=0` a (4, 2) run launches g1_fold_packed and
+   no g1_fold_madd;
+   (c) phase 6's batch through `batch_verify(..., mesh=<(4, 2) grid>)`: the
+   one-MSM verdicts;
+   (d) a backend sending every MSM of 8 or more terms through the (4, 2)
+   grid: the seed-0 l = 124 Whisk proof equals the golden bytes, verifies,
+   a tamper is rejected, and a mesh `batch_verify` of two l = 12 proofs
+   accepts and rejects a swapped instance;
+   (e) `curdleproofs_tpu_torch/tools/multihost_verify.py`: two gloo ranks
+   on cuda:0 (`CURDLEPROOFS_BACKEND=torch`), the valid and the corrupt
+   pass AND-reduced right on both; then `distributed_batch_verify` in this
+   process with a (2, 1) grid.
+   Every phase 9 line carries the card's name and power limit.
 
 Kernel launches are counted for each driven path on its own (zeroed just
 before it, read just after it): the MSMs at 2^16 and 626k, the full-add
 MSM, the protocol run of phase 4 (l = 124 and l = 252 together), the Whisk
-chain, the batch verification, the two batched proves, and phase 4's run on
-`DeviceBackend` and on `HybridBackend` (untuned and tuned). Each path must
+chain, the batch verification, the two batched proves, phase 4's run on
+`DeviceBackend` and on `HybridBackend` (untuned and tuned), and phase 9's
+sharded MSMs (with and without the full-add switch), mesh batch verification
+and protocol through the grid (g1_sqrt must launch on none). Each path must
 launch every kernel `EXPECTED` lists for it. g1_fold_rows and g1_add_rows
 have no caller (none in the JAX package either): they are held against
 their plain versions in phase 2 and launch on no path. The kernels' JSON
 record, on the line before the last, carries each kernel's counts on its
 own main path under `launches` (the protocol run; for g1_fold_packed the
 full-add MSM, for the suffix kernel's chain entry the 626k MSM, whose c =
-16 reduction is the only one it serves, for g1_ladder the run on
+16 reduction is the only one it serves on one device, for g1_ladder the run on
 `DeviceBackend`; named in `launches_path`) and every path's under
 `launches_by_path`; the last line is the device record.
 """
@@ -146,16 +174,23 @@ DEVICE_PATH = f"{MAIN_PATH} on DeviceBackend"
 HYBRID_UNTUNED = f"{MAIN_PATH} on HybridBackend, untuned"
 HYBRID_TUNED = f"{MAIN_PATH} on HybridBackend, autotuned table"
 TUNE_LOGNS = (10, 12, 14, 16)                      # phase 8 (c)
+# phase 9: (Dp, Dw) logical grids over the one card, at n = 64 and 626k
+SHARD_GRIDS = ((1, 1), (2, 1), (4, 1), (4, 2), (8, 1), (2, 2), (6, 1))
+SHARD_BIG_GRIDS = ((4, 2), (8, 1))
+SHARD_PATH = "sharded msm on logical grids over cuda:0, n=64 and n=626000"
+SHARD_FULL_ADD_PATH = "sharded msm (4, 2) n=64, CURDLEPROOFS_MADD=0"
+MESH_BATCH_PATH = f"{BATCH_PATH} on a (4, 2) logical grid"
+MESH_PROTOCOL_PATH = "whisk l=124 through a (4, 2) logical grid"
 REPLACES = {
-    "fq_mul": "curdleproofs_tpu/ops/pallas_kernels.py:268",
+    "fq_mul": "curdleproofs_tpu/ops/pallas_kernels.py:269",
     "g1_add": "curdleproofs_tpu/ops/pallas_kernels.py:282",
-    "g1_fold_madd": "curdleproofs_tpu/ops/pallas_kernels.py:446",
-    "g1_suffix_weighted": "curdleproofs_tpu/ops/pallas_kernels.py:505",
-    "g1_suffix_weighted_tree": "curdleproofs_tpu/ops/pallas_kernels.py:505",
-    "g1_fold_packed": "curdleproofs_tpu/ops/pallas_kernels.py:439",
-    "g1_sqrt": "curdleproofs_tpu/ops/pallas_kernels.py:201",
-    "g1_fold_rows": "curdleproofs_tpu/ops/pallas_kernels.py:453",
-    "g1_add_rows": "curdleproofs_tpu/ops/pallas_kernels.py:526",
+    "g1_fold_madd": "curdleproofs_tpu/ops/pallas_kernels.py:447",
+    "g1_suffix_weighted": "curdleproofs_tpu/ops/pallas_kernels.py:506",
+    "g1_suffix_weighted_tree": "curdleproofs_tpu/ops/pallas_kernels.py:506",
+    "g1_fold_packed": "curdleproofs_tpu/ops/pallas_kernels.py:440",
+    "g1_sqrt": "curdleproofs_tpu/ops/pallas_kernels.py:202",
+    "g1_fold_rows": "curdleproofs_tpu/ops/pallas_kernels.py:454",
+    "g1_add_rows": "curdleproofs_tpu/ops/pallas_kernels.py:527",
     "g1_ladder": "curdleproofs_tpu/ops/msm.py:73",
 }
 NO_CALLER = {"g1_fold_rows", "g1_add_rows"}
@@ -188,6 +223,17 @@ EXPECTED = {
     # 2^16 points); on the table, wherever `route_to_device` says
     HYBRID_UNTUNED: set(),
     HYBRID_TUNED: set(),
+    # the sharded MSM: plain uploads (no g1_sqrt), the points-axis reduce's
+    # g1_add; c = 8 below 2^18 points (the tree entry where a cell keeps
+    # all 32 windows, Cb = 8; the chain at Cb = 4, a (4, 2) grid's window
+    # shard), c = 16 at 626k (the chain)
+    SHARD_PATH: _MSM8 | {"g1_suffix_weighted"},
+    SHARD_FULL_ADD_PATH: {"fq_mul", "g1_add", "g1_fold_packed",
+                          "g1_suffix_weighted"},
+    MESH_BATCH_PATH: {"fq_mul", "g1_add", "g1_fold_madd",
+                      "g1_suffix_weighted"},
+    MESH_PROTOCOL_PATH: {"fq_mul", "g1_add", "g1_fold_madd",
+                         "g1_suffix_weighted"},
 }
 # each kernel's own main path, where it is not the protocol run
 OWN_PATH = {"g1_fold_packed": FULL_ADD_PATH, "g1_suffix_weighted": BIG_PATH,
@@ -588,6 +634,7 @@ def main() -> int:
         by_path[path] = launches
 
     host = HostBackend()
+    host_want = {}                # phase 3's host results, reused in phase 9
     small_pts = tiled(n16, 3)
     small_ss = [rnd.randrange(R) for _ in range(n16)]
     small_bases = md.DeviceBases(small_pts, dev)
@@ -622,6 +669,7 @@ def main() -> int:
         host_ms = (time.perf_counter() - t0) * 1e3
         if got != want:
             raise AssertionError(f"{path} differs from the host MSM")
+        host_want[path] = want
         p = md.pick_params(n)
         log(f"{path} c={p.c} T={p.t_rows} s_pad={p.s_pad}: equal to host; "
             f"wall {wall:.1f} ms (host native {host_ms:.1f} ms), peak "
@@ -791,6 +839,7 @@ def main() -> int:
         raise AssertionError(f"batch verify verdicts: streamed {ok_s}/"
                              f"{bad_s}, one-MSM {ok_1}/{bad_1} (valid/"
                              f"tampered)")
+    batch6 = (crs, instances, tampered, proofs)   # phase 9 (c) reuses it
     starts = [i for i, (s, _) in enumerate(marks) if s == "start"] \
         + [len(marks)]
     dispatches = [stage_ms(marks[a:b]) for a, b in zip(starts, starts[1:])]
@@ -1187,6 +1236,318 @@ def main() -> int:
                 "kernels_built", ()):
             raise AssertionError(f"cli info: {r.stdout}{r.stderr[-2000:]}")
         log("cli info: " + json.dumps(info))
+
+    # -- phase 9: multi-device on one card -------------------------------------
+    from curdleproofs_tpu_torch.parallel import distributed as pdist
+    from curdleproofs_tpu_torch.parallel import sharded_msm as psm
+    from curdleproofs_tpu_torch.tools.multihost_verify import build_batch
+
+    def grid(dp, dw):
+        """A (Dp, Dw) logical grid: every cell is cuda:0."""
+        mesh = psm.make_msm_mesh(dp * dw, dw, devices=[dev] * (dp * dw))
+        if mesh.devices.shape != (dp, dw):
+            raise AssertionError(f"grid {mesh.devices.shape}, not {(dp, dw)}")
+        return mesh
+
+    log(f"[{card}] phase 9: the sharded MSM on logical grids over cuda:0, "
+        f"one card, logical grid: every cell is the one card and the cells "
+        f"run one after another, so these times show what sharding costs "
+        f"on one card, not how it scales")
+
+    # the kernels at the shapes a window shard hands them: the suffix kernel
+    # at a (4, 2) grid's (Cb, WG), c = 16 (626k) and c = 8, the chunk
+    # suffix's scan step over that W*G, the reduce's g1_add and
+    # leave-Montgomery's fq_mul over Wl window sums
+    gz = K.g1_add_plain(points_to_device(tiled(4096, 1), dev),
+                        points_to_device(tiled(4096, 2), dev))
+    for c9, dw9 in ((16, 2), (8, 2)):
+        wl = -(-255 // c9) // dw9
+        g9, cb9 = md._phase3_chunks(c9, wl)
+        wg9 = wl * g9
+        idx = torch.arange(cb9 * wg9, device=dev) % 4096
+        rows9 = [c[:, idx].reshape(24, cb9, wg9) for c in gz]
+        what = f"a cell of the c = {c9} MSM on a (4, {dw9}) grid"
+        entry = "g1_suffix_weighted_tree" if K.suffix_uses_tree(cb9, wg9) \
+            else "g1_suffix_weighted"
+        plain = K.g1_suffix_weighted_tree_plain if entry.endswith("tree") \
+            else K.g1_suffix_weighted_plain
+        check(entry, f"Cb = {cb9}, WG = {wg9} ({what})",
+              lambda: sum(K.g1_suffix_weighted(*rows9), ()),
+              lambda: sum(plain(*rows9), ()), 5, *suffix_cost(cb9, wg9))
+        scan_check(f"scan step, W*G = {wg9} (G = {g9}, {what})",
+                   PointsXYZ(*(c[:, idx[:wg9]] for c in gz)),
+                   torch.arange(wg9, device=dev) // g9, 1, 20)
+        p9, q9 = (PointsXYZ(*(c[:, o:o + wl].contiguous() for c in gz))
+                  for o in (0, wl))
+        check("g1_add", f"N = {wl} (a reduce step over {what}'s window "
+              f"sums)", lambda: K.g1_add(p9, q9),
+              lambda: K.g1_add_plain(p9, q9), 50, 9 * 96 * wl,
+              wl * 12 * MUL32_PER_FQ_MUL)
+        lm9 = torch.cat(tuple(p9), dim=1)
+        check("fq_mul", f"leave-Montgomery [24, 3Wl = {3 * wl}] x [24, 1] "
+              f"({what})", lambda: (K.fq_mul(lm9, one_plain),),
+              lambda: (K.fq_mul_plain(lm9, one_plain),), 50,
+              2 * 96 * 3 * wl + 96, 3 * wl * MUL32_PER_FQ_MUL)
+    del gz, rows9, p9, q9, lm9, idx
+
+    def sharded_run(mesh, pts, ss, want, label) -> dict:
+        """One `sharded_msm_kernel` call with CUDA events (and the host
+        clock) at every mark: per cell each stage's device ms, the
+        points-axis reduce's device ms, the download's and the host
+        combine's ms, the wall and the peak memory.  The result must equal `want`."""
+        marks = []
+
+        def mark(stage):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((stage, ev, time.perf_counter()))
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        mark("begin")
+        got = psm.sharded_msm_kernel(mesh, len(pts))(pts, ss, mark=mark)
+        wall = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        if got != want:
+            raise AssertionError(f"{label}: the sharded MSM differs from the "
+                                 f"host MSM")
+        cells, rest = {}, {}
+        for (_, e0, h0), (s1, e1, h1) in zip(marks, marks[1:]):
+            head, _, stage = s1.partition(" ")
+            if "," in head:
+                if stage != "start":
+                    cells.setdefault(head, {})[stage] = e0.elapsed_time(e1)
+            elif s1 == "reduce":
+                rest["reduce_ms"] = e0.elapsed_time(e1)
+            else:                      # download, combine: the host's clock
+                rest[f"{s1}_ms"] = (h1 - h0) * 1e3
+        rec = {"wall_ms": wall, **rest,
+               "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+               "cells": cells}
+        log(f"[{card}] {label}: equal to the host MSM; one card, logical "
+            f"grid: wall {wall:.1f} ms, " + json.dumps(rest)
+            + f", peak {rec['peak_gib']:.3f} GiB")
+        for cell, st in cells.items():
+            log(f"  cell {cell}: {sum(st.values()):.3f} device ms, stages "
+                + json.dumps({k: round(v, 3) for k, v in st.items()}))
+        return rec
+
+    # (a) every grid shape at n = 64, a ragged n = 37, then the 626k MSM
+    rng9 = StdRng.seed_from_u64(900)
+    pts64 = [rng9.rand_g1() for _ in range(64)]
+    ss64 = [rnd.randrange(R) for _ in range(64)]
+    want64 = host.msm(pts64, ss64)
+    want37 = host.msm(pts64[:37], ss64[:37])
+    torch.cuda.synchronize()
+    K.reset_launches()
+    for dp9, dw9 in SHARD_GRIDS:
+        t0 = time.perf_counter()
+        got = psm.sharded_msm(pts64, ss64, grid(dp9, dw9))
+        ms = (time.perf_counter() - t0) * 1e3
+        if got != want64:
+            raise AssertionError(f"sharded MSM n=64 on ({dp9}, {dw9}) "
+                                 f"differs from the host MSM")
+        log(f"[{card}] sharded MSM n=64 on a ({dp9}, {dw9}) logical grid: "
+            f"equal to the host MSM, wall {ms:.1f} ms")
+    if psm.sharded_msm(pts64[:37], ss64[:37], grid(8, 1)) != want37:
+        raise AssertionError("sharded MSM n=37 on (8, 1) differs from the "
+                             "host MSM")
+    log(f"[{card}] sharded MSM n=37 (ragged) on an (8, 1) logical grid: "
+        f"equal to the host MSM")
+    shard_big = {}
+    for dp9, dw9 in SHARD_BIG_GRIDS:
+        shard_big[f"{dp9}x{dw9}"] = sharded_run(
+            grid(dp9, dw9), big_pts, big_ss, host_want[BIG_PATH],
+            f"sharded MSM n={N_BIG} on a ({dp9}, {dw9}) logical grid")
+    counted(SHARD_PATH)
+    if by_path[SHARD_PATH]["g1_sqrt"]:
+        raise AssertionError(f"{SHARD_PATH}: g1_sqrt launched on plain "
+                             f"uploads")
+    # the unsharded MSM on the same inputs: fresh (compressed upload), then
+    # resident
+    for what in ("fresh bases", "resident bases"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = md.msm_device(big_pts, big_ss, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        if got != host_want[BIG_PATH]:
+            raise AssertionError("msm_device n=626k differs from the host")
+        shard_big[f"unsharded msm_device, {what}"] = {"wall_ms": ms}
+        log(f"[{card}] unsharded msm_device n={N_BIG}, {what}: wall "
+            f"{ms:.1f} ms, beside the logical grids' walls above")
+    md._BASES_CACHE.clear()
+
+    # (b) the full-add fold through CURDLEPROOFS_MADD=0
+    os.environ["CURDLEPROOFS_MADD"] = "0"
+    K.reset_launches()
+    got = psm.sharded_msm(pts64, ss64, grid(4, 2))
+    counted(SHARD_FULL_ADD_PATH)
+    del os.environ["CURDLEPROOFS_MADD"]
+    if got != want64 or by_path[SHARD_FULL_ADD_PATH]["g1_fold_madd"] \
+            or by_path[SHARD_FULL_ADD_PATH]["g1_sqrt"]:
+        raise AssertionError(f"{SHARD_FULL_ADD_PATH}: wrong result, or the "
+                             f"madd fold or g1_sqrt launched")
+
+    # (c) phase 6's batch verified with its deduped MSM on a (4, 2) grid
+    # (the replays on the host): the one-MSM verdicts
+    crs6, inst6, bad6, proofs6 = batch6
+    mesh42 = grid(4, 2)
+    with use_backend(HostBackend()):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        ok_m = bv.batch_verify(crs6, inst6, proofs6, StdRng.seed_from_u64(9),
+                               mesh=mesh42)
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        bad_m = bv.batch_verify(crs6, bad6, proofs6, StdRng.seed_from_u64(9),
+                                mesh=mesh42)
+        mesh_bad_ms = (time.perf_counter() - t0) * 1e3
+        counted(MESH_BATCH_PATH)
+    if (ok_m, bad_m) != (ok_1, bad_1) or by_path[MESH_BATCH_PATH]["g1_sqrt"]:
+        raise AssertionError(f"{MESH_BATCH_PATH}: verdicts {ok_m}/{bad_m}, "
+                             f"the one-MSM run's {ok_1}/{bad_1}")
+    log(f"[{card}] {MESH_BATCH_PATH}: accepted in {mesh_ms:.1f} ms, the "
+        f"swapped instance rejected in {mesh_bad_ms:.1f} ms (one card, "
+        f"logical grid; the replays on the host), as the one-MSM run")
+    del batch6, crs6, inst6, bad6, proofs6
+
+    # (d) the protocol through the grid: every MSM of 8 or more terms
+    class MeshBackend(TorchBackend):
+        """Every MSM of 8 or more terms through `sharded_msm` on `mesh`,
+        the rest and the latency ops on the host; the fused native loops
+        off, so every folding round's MSM crosses the grid."""
+
+        name = "mesh"
+
+        def __init__(self, mesh):
+            super().__init__(dev)
+            self.mesh = mesh
+
+        def msm(self, points, scalars):
+            if not points:
+                return G1.infinity()
+            if not self._on_device(points):
+                return self._host.msm(points, scalars)
+            return psm.sharded_msm(points, list(scalars), self.mesh)
+
+        def msm_raw(self, points, sbytes):
+            if len(sbytes) != 32 * len(points):
+                raise ValueError("scalar buffer and points differ in length")
+            if not points:
+                return G1.infinity()
+            if not self._on_device(points):
+                return self._host.msm_raw(points, sbytes)
+            return psm.sharded_msm(points, bytes(sbytes), self.mesh)
+
+    mesh_backend = MeshBackend(mesh42)
+    ell12 = 12
+    crs12 = generate_crs(ell12)
+
+    def build12(seed):
+        g = StdRng.seed_from_u64(seed)
+        vr = [g.rand_g1() for _ in range(ell12)]
+        vs = [g.rand_g1() for _ in range(ell12)]
+        perm = list(range(ell12))
+        g.shuffle(perm)
+        k = g.rand_fr()
+        T, U, M, mb = shuffle_permute_and_commit_input(crs12, vr, vs, perm,
+                                                       k, g)
+        return CurdleproofsProof.new(crs12, vr, vs, T, U, M, perm, k, mb, g), \
+            bv.ShuffleInstance(vr, vs, T, U, M)
+
+    with use_backend(HostBackend()):
+        built = [build12(seed) for seed in (3, 4)]
+    proofs12 = [p for p, _ in built]
+    insts12 = [i for _, i in built]
+    bad12 = [insts12[0], bv.ShuffleInstance(
+        insts12[1].vec_S, insts12[1].vec_R, insts12[1].vec_T,
+        insts12[1].vec_U, insts12[1].M)]
+    with use_backend(mesh_backend):
+        rng = StdRng.seed_from_u64(0)
+        crs = CurdleproofsCrs.generate_crs(WHISK_ELL)
+        pre = [WhiskTracker.from_rand(rng) for _ in range(WHISK_ELL)]
+        torch.cuda.synchronize()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        post, proof = generate_whisk_shuffle_proof(rng, crs, pre)
+        mesh_prove_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        ok = is_valid_whisk_shuffle_proof(rng, crs, pre, post, proof)
+        mesh_verify_ms = (time.perf_counter() - t0) * 1e3
+        tampered = [WhiskTracker.from_rand(StdRng.seed_from_u64(9))] \
+            + post[1:]
+        rejected = not is_valid_whisk_shuffle_proof(rng, crs, pre, tampered,
+                                                    proof)
+        vrng = StdRng.seed_from_u64(9)
+        ok12 = bv.batch_verify(crs12, insts12, proofs12, vrng, mesh=mesh42)
+        bad12_ok = bv.batch_verify(crs12, bad12, proofs12, vrng, mesh=mesh42)
+        counted(MESH_PROTOCOL_PATH)
+    if proof.hex() != golden or len(proof) != 4496:
+        raise AssertionError("the l=124 whisk proof through the grid differs "
+                             "from the golden vector")
+    if not ok or not rejected or ok12 is not True or bad12_ok is not False:
+        raise AssertionError(f"{MESH_PROTOCOL_PATH}: verify {ok}, tamper "
+                             f"rejected {rejected}, mesh batch verify "
+                             f"{ok12}/{bad12_ok}")
+    log(f"[{card}] {MESH_PROTOCOL_PATH}: proof equals the golden 4496 bytes; "
+        f"prove {mesh_prove_ms:.1f} ms, verify {mesh_verify_ms:.1f} ms, "
+        f"tamper rejected; mesh batch_verify (l = {ell12}, 2 proofs) "
+        f"accepts and rejects a swapped instance; msm engines "
+        + json.dumps(mesh_backend.engine_counts))
+
+    # (e) two gloo processes on the one card, then a single-process
+    # distributed verification with a (2, 1) grid
+    with tempfile.TemporaryDirectory() as tmp:
+        art_path = pathlib.Path(tmp) / "multihost.json"
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, str(ROOT / "curdleproofs_tpu_torch" / "tools"
+                                 / "multihost_verify.py"),
+             "--out", str(art_path)],
+            cwd=ROOT, capture_output=True, text=True, timeout=450,
+            env={**os.environ, "CURDLEPROOFS_BACKEND": "torch"})
+        mh_s = time.perf_counter() - t0
+        if r.returncode:
+            raise AssertionError(f"the two-rank run failed: "
+                                 f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+        art = json.loads(art_path.read_text())
+    ranks = {w["rank"]: w for w in art["workers"]}
+    if not (art["ok"] is True and set(ranks) == {0, 1}
+            and all(w["process_count"] == 2 and w["backend"] == "torch"
+                    for w in ranks.values())
+            and ranks[0]["valid_pass"] and ranks[1]["valid_pass"]
+            and ranks[0]["local_ok_corrupt"]
+            and not ranks[1]["local_ok_corrupt"]
+            and not ranks[0]["corrupt_pass"]
+            and not ranks[1]["corrupt_pass"]):
+        raise AssertionError(f"two-rank verdicts: {json.dumps(art)}")
+    log(f"[{card}] two gloo ranks on cuda:0 (CURDLEPROOFS_BACKEND=torch): "
+        f"valid pass True on both, corrupt pass False on both (rank 1's "
+        f"slice rejected locally), {mh_s:.1f} s with process start; "
+        + json.dumps(art))
+    with use_backend(HostBackend()):
+        crs_m, inst_m, proofs_m = build_batch()
+        rank, world = pdist.init_multihost()
+        mesh21 = grid(2, 1)
+        t0 = time.perf_counter()
+        ok_d = pdist.distributed_batch_verify(
+            crs_m, inst_m, proofs_m, StdRng.seed_from_u64(99),
+            local_mesh=mesh21)
+        dist_ms = (time.perf_counter() - t0) * 1e3
+        last = inst_m[-1]
+        inst_m[-1] = bv.ShuffleInstance(last.vec_R, last.vec_S, last.vec_U,
+                                        last.vec_T, last.M)
+        bad_d = pdist.distributed_batch_verify(
+            crs_m, inst_m, proofs_m, StdRng.seed_from_u64(99),
+            local_mesh=mesh21)
+    if (rank, world, ok_d, bad_d) != (0, 1, True, False):
+        raise AssertionError(f"single-process distributed verify: rank "
+                             f"{rank}/{world}, verdicts {ok_d}/{bad_d}")
+    log(f"[{card}] distributed_batch_verify, one process, (2, 1) grid: "
+        f"accepted in {dist_ms:.1f} ms, a T/U swap rejected")
+    log("phase 9 record: " + json.dumps({"card": card, "msm_626k": shard_big}))
 
     for name, rec in records.items():
         path = OWN_PATH.get(name, MAIN_PATH)

@@ -32,7 +32,7 @@ def __getattr__(name):
 
         return CurdleproofsCrs
     if name in ("WhiskTracker", "generate_whisk_shuffle_proof",
-                "is_valid_whisk_shuffle_proof",
+                "is_valid_whisk_shuffle_proof", "is_valid_whisk_shuffle_proofs",
                 "generate_whisk_tracker_proof",
                 "is_valid_whisk_tracker_proof",
                 "is_valid_whisk_tracker_proofs"):

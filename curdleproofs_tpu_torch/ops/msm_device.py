@@ -47,7 +47,7 @@ from .limbs import FQ_LIMBS
 
 __all__ = ["STREAM_LOGN", "DeviceBases", "DeviceMsmStream", "MsmParams",
            "msm_device", "pick_params", "prepare_bases", "stream_params",
-           "use_compressed_upload"]
+           "use_compressed_upload", "use_madd"]
 
 _BIG = 1 << 30  # "unwritten" sentinel for scatter-built tables
 
@@ -339,6 +339,12 @@ def _phase3_chunks(c: int, w_cnt: int) -> tuple[int, int]:
     return g, b // g
 
 
+def use_madd() -> bool:
+    """Mixed-add fold (11-mul complete madd on the affine bases) unless
+    CURDLEPROOFS_MADD=0 pins the 12-mul full-add fold for an A/B."""
+    return os.environ.get("CURDLEPROOFS_MADD", "1") != "0"
+
+
 @dataclass
 class SlotPlan:
     """Stages 3-7: sorted bucket keys, the fold plan and the slot tables."""
@@ -444,12 +450,14 @@ def _dense_buckets(acc: PointsXYZ, firstmap: torch.Tensor, c: int,
 
 
 def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
-                   madd=True, mark=None):
+                   madd=True, mark=None, to_canonical=True):
     """Window sums for the windows of signed digits [W, n] over the extended
     points [P | -P | inf] -> [3, 24, W] canonical projective.  `madd` picks
     the fold (`g1_fold_madd`, else the full-add `g1_fold_packed`).
     `mark(stage)`, when given, is called as each stage has been queued (a
-    caller records CUDA events there)."""
+    caller records CUDA events there).  `to_canonical=False` returns the
+    window sums in Montgomery form, [3, 24, W], so that a caller can go on
+    adding them (the sharded MSM's butterfly) before leaving the domain."""
     mark = mark or (lambda stage: None)
     w_cnt = digits.shape[0]
     g_chunks, cb = _phase3_chunks(c, w_cnt)
@@ -497,6 +505,8 @@ def _pipeline_core(ext_px, ext_py, ext_zb, digits, *, n, c, t_rows, s_pad,
     wsum = g1_add(lwsum, s2)
     mark("reduce")
 
+    if not to_canonical:
+        return torch.stack(tuple(wsum))
     out = _leave_montgomery(wsum)
     mark("leave_mont")
     return out
@@ -564,7 +574,7 @@ def _window_sums_to_host(out: np.ndarray) -> list[G1]:
 
 def msm_device(points: "list[G1] | DeviceBases",
                scalars: "list[int] | bytes", c: int | None = None,
-               device="cuda", mark=None, madd=True) -> G1:
+               device="cuda", mark=None, madd: bool | None = None) -> G1:
     """Device MSM: one pipeline run + a W-term host Horner ladder.
 
     `points` may be a DeviceBases (its own device wins) or a plain list
@@ -572,7 +582,10 @@ def msm_device(points: "list[G1] | DeviceBases",
     may be python ints or canonical 32 B-LE raw bytes.  `mark(stage)` is
     called after each pipeline stage is queued (see `_pipeline_core`).
     `madd=False` folds with the 12-mul full add (`g1_fold_packed`) instead
-    of the 11-mul mixed add on the affine bases."""
+    of the 11-mul mixed add on the affine bases; unset, `use_madd()`
+    decides."""
+    if madd is None:
+        madd = use_madd()
     if isinstance(points, DeviceBases):
         bases = points
         n_real = bases.n_real
@@ -644,12 +657,12 @@ class DeviceMsmStream:
 
     def __init__(self, n_chunk: int | None = None, c: int | None = None,
                  async_worker: bool = False, device="cuda", mark=None,
-                 madd=True):
+                 madd: bool | None = None):
         self.device = resolve_device(device)
         self.params = (stream_params(c, self.device) if n_chunk is None
                        else pick_params(n_chunk, c, self.device))
         self.mark = mark
-        self.madd = madd
+        self.madd = use_madd() if madd is None else madd
         self._async = async_worker
         self._outs: list[torch.Tensor] = []
         self._pts: list[G1] = []

@@ -61,7 +61,7 @@ from .limbs import FQ_LIMBS as L
 from .limbs import int_to_limbs
 from .msm_device import (
     DeviceBases, _decode_canonical, _leave_montgomery, _round_up,
-    _scalar_bytes, _suffix_scan, _window_sums_to_host,
+    _scalar_bytes, _suffix_scan, _window_sums_to_host, use_madd,
 )
 
 __all__ = ["DeviceBasesTable", "GroupedParams", "GroupedPlan",
@@ -300,14 +300,17 @@ def upload_relations(limbs: np.ndarray, cols: np.ndarray, device):
             torch.from_numpy(cols).to(device))
 
 
-def grouped_msm(bases: DeviceBases, relations, madd: bool = True,
+def grouped_msm(bases: DeviceBases, relations, madd: bool | None = None,
                 mark=None) -> list[G1]:
     """Host-facing grouped MSM: each relation is (cols, scalars) over the
     resident `bases` (cols index the ORIGINAL point list).  All relations
     run in one dispatch on the bases' device; returns one G1 per relation.
-    `madd` and `mark` as in `grouped_core`."""
+    `madd` and `mark` as in `grouped_core`; unset, `use_madd()` picks the
+    fold."""
     if not relations:
         return []
+    if madd is None:
+        madd = use_madd()
     width = max(len(c) for c, _ in relations)
     params = pick_grouped_params(len(relations), width, bases.n)
     lt, ct = upload_relations(
@@ -475,11 +478,13 @@ def grouped_table_run(tpx, tpy, tzb, limbs, col_pts, *, n_rel: int,
     return out
 
 
-def grouped_msm_table(table: DeviceBasesTable, relations, madd: bool = True,
-                      mark=None) -> list[G1]:
+def grouped_msm_table(table: DeviceBasesTable, relations,
+                      madd: bool | None = None, mark=None) -> list[G1]:
     """`grouped_msm` twin over a DeviceBasesTable (the dense fold path)."""
     if not relations:
         return []
+    if madd is None:
+        madd = use_madd()
     width = max(len(c) for c, _ in relations)
     n_rel = _round_up(max(len(relations), 8), 8)
     lt, ct = upload_relations(

@@ -33,7 +33,8 @@ The device is the active `TorchBackend`'s, as for batch verification's
 stream (`ops/backend.py::active_device`); under any other backend it is
 `cuda`, which raises without a card.  `CURDLEPROOFS_TABLE=0` pins the slot
 mode of the grouped MSM, else table mode runs; `madd=False` folds with the
-full add (`g1_fold_packed`).
+full add (`g1_fold_packed`); left unset, `use_madd()` reads
+`CURDLEPROOFS_MADD`.
 
 Bit-exactness: per-proof transcripts and ChaCha12 RNG draws advance in
 exactly the sequential order, so `batch_prove` output proofs serialize
@@ -60,7 +61,7 @@ from ..host.g1 import G1
 from ..host.rng import StdRng
 from ..ipa import InnerProductProof
 from ..ops.backend import active_device
-from ..ops.msm_device import DeviceBases
+from ..ops.msm_device import DeviceBases, use_madd
 from ..ops.msm_grouped import (
     DeviceBasesTable, decode_points, grouped_slot_run, grouped_table_run,
     pack_relations, pick_grouped_params, upload_relations,
@@ -201,9 +202,10 @@ class _Dispatcher:
     `bases_s`).  `mark(stage)`, when given, reaches the grouped MSM's stages
     and is called with "start" as each dispatch begins."""
 
-    def __init__(self, bases: DeviceBases, madd: bool = True, mark=None):
+    def __init__(self, bases: DeviceBases, madd: bool | None = None,
+                 mark=None):
         self.bases = bases
-        self.madd = madd
+        self.madd = use_madd() if madd is None else madd
         self.mark = mark or (lambda stage: None)
         self.timings: dict[str, float] = {}
         self.table = None
@@ -276,7 +278,7 @@ def _round_maps(n: int) -> list[tuple[np.ndarray, np.ndarray]]:
 # --------------------------------------------------------------------------
 
 def batch_prove(crs: CurdleproofsCrs, instances: list[ProveInstance],
-                wave: int | None = None, madd: bool = True,
+                wave: int | None = None, madd: bool | None = None,
                 mark=None) -> list[CurdleproofsProof]:
     """Prove all instances with per-round grouped device dispatches on the
     active backend's device (see the module docstring).
@@ -284,7 +286,8 @@ def batch_prove(crs: CurdleproofsCrs, instances: list[ProveInstance],
     Proof bytes are identical to sequential `CurdleproofsProof.new` calls
     with the same per-instance RNGs.  `wave` bounds how many proofs share
     one device residency (default: all, capped at 256).  `madd=False` folds
-    with the full add; `mark(stage)` reaches each dispatch's stages (see
+    with the full add (unset: `use_madd()`); `mark(stage)` reaches each
+    dispatch's stages (see
     `_Dispatcher`)."""
     if not instances:
         return []
@@ -296,7 +299,8 @@ def batch_prove(crs: CurdleproofsCrs, instances: list[ProveInstance],
 
 
 def _prove_wave(crs: CurdleproofsCrs, insts: list[ProveInstance],
-                madd: bool = True, mark=None) -> list[CurdleproofsProof]:
+                madd: bool | None = None,
+                mark=None) -> list[CurdleproofsProof]:
     device = active_device()
     t_wave = time.perf_counter()
     B = len(insts)

@@ -1,13 +1,14 @@
 """Batched shuffle-proof verification (the JAX package's
-`parallel/batch_verify.py` without its mesh branch).
+`parallel/batch_verify.py`).
 
 All proofs in a batch share ONE MSM accumulator: each proof's deferred checks
 enter the random linear combination, and the CRS bases (identical across
 proofs) dedup, so B proofs cost B x (transcript replay + small muls) on the
 host plus a SINGLE giant MSM, which the active backend runs (on the card
-under `TorchBackend`).  With `stream_chunk`, that MSM is split between a
-`DeviceMsmStream` on the card and the host, chunk by chunk, as the replays
-go.
+under `TorchBackend`), or, given a `mesh`, the sharded MSM over that grid
+of devices (`parallel/sharded_msm.py`).  With `stream_chunk`, that MSM is
+split between a `DeviceMsmStream` on the card and the host, chunk by chunk,
+as the replays go.
 
 Semantics: all-or-nothing (a single invalid proof fails the batch);
 `identify=True` bisects to per-proof verdicts on failure.  Only
@@ -185,12 +186,17 @@ def _batch_verify_streamed(
     return total is not None and total.is_infinity()
 
 
-def _final_check(acc: MsmAccumulator) -> bool:
-    try:
-        acc.verify()
-        return True
-    except VerificationError:
-        return False
+def _final_check(acc: MsmAccumulator, mesh=None) -> bool:
+    if mesh is None:
+        try:
+            acc.verify()
+            return True
+        except VerificationError:
+            return False
+    from .sharded_msm import sharded_msm
+
+    bases, scalars = acc._dedup()
+    return sharded_msm(bases, scalars, mesh).is_infinity()
 
 
 def batch_verify(
@@ -198,11 +204,13 @@ def batch_verify(
     instances: list[ShuffleInstance],
     proofs: list[CurdleproofsProof],
     rng: StdRng,
+    mesh=None,
     identify: bool = False,
     stream_chunk: int | None = None,
     mark=None,
 ) -> bool | list[bool]:
-    """Verify many proofs with one deduped MSM.
+    """Verify many proofs with one deduped MSM, sharded over `mesh` (a
+    `sharded_msm.MsmMesh`) when one is given.
 
     `stream_chunk=B_c` pipelines the final MSM with the replays: every B_c
     proofs, the chunk's deduped terms go to the device stream or to the
@@ -234,7 +242,7 @@ def batch_verify(
             # an eagerly-checked sub-argument (same-scalar) already failed;
             # for batch semantics that fails the whole subset
             return False
-        return _final_check(acc)
+        return _final_check(acc, mesh)
 
     all_idx = list(range(len(proofs)))
     ok = run(all_idx)

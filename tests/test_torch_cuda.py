@@ -786,3 +786,102 @@ def test_hybrid_backend_routes_as_the_table_says(tmp_path, monkeypatch):
         assert b.engine_counts == {"device": 1, "host": 1}
     finally:
         msm_tune._load_raw.cache_clear()
+
+
+# --------------------------------------------------------------------------
+# the sharded MSM on logical grids over the one card
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [64, 1 << 12])
+@pytest.mark.parametrize("grid", [(4, 2), (6, 1)])
+def test_sharded_msm_on_a_logical_grid(grid, n):
+    """`sharded_msm` over a (Dp, Dw) grid whose every cell is cuda:0,
+    against the host: (4, 2) reduces its points axis by a tree of
+    g1_add launches, (6, 1) on the host.  The plain upload does not run
+    g1_sqrt."""
+    dev = _card()
+    from curdleproofs_tpu_torch.parallel.sharded_msm import (
+        make_msm_mesh, sharded_msm,
+    )
+
+    rng = StdRng.seed_from_u64(40)
+    base = [rng.rand_g1() for _ in range(256)]
+    pts = [base[i % 256] for i in range(n)]
+    ss = [rnd.randrange(R) for _ in range(n)]
+    mesh = make_msm_mesh(grid[0] * grid[1], grid[1], devices=[dev] * 8)
+    assert mesh.devices.shape == grid
+    kernels.reset_launches()
+    assert sharded_msm(pts, ss, mesh) == HostBackend().msm(pts, ss)
+    assert kernels.LAUNCHES["g1_fold_madd"] == grid[0] * grid[1]
+    assert kernels.LAUNCHES["g1_sqrt"] == 0
+
+
+@pytest.mark.parametrize("c, dw", [(8, 2), (8, 4), (8, 8), (16, 2), (16, 4),
+                                   (16, 8)])
+def test_suffix_entries_at_window_shard_shapes(c, dw):
+    """The suffix kernel at the (Cb, WG) a window shard of Dw hands it:
+    the entry `suffix_uses_tree` routes to against its plain version, and
+    the chain entry against `g1_suffix_weighted_plain` (array equality)."""
+    dev = _card()
+    w_local = -(-255 // c) // dw
+    g, cb = md._phase3_chunks(c, w_local)
+    wg = w_local * g
+    p, q = _adversarial_pairs(512)
+    idx = torch.arange(cb * wg) % 1024
+    rows = [torch.cat([a, b], dim=1)[:, idx].reshape(FQ_LIMBS, cb, wg)
+            .to(dev) for a, b in zip(p, q)]
+    entries = [(False, "g1_suffix_weighted",
+                kernels.g1_suffix_weighted_plain)]
+    if kernels.suffix_uses_tree(cb, wg):
+        entries.append((True, "g1_suffix_weighted_tree",
+                        kernels.g1_suffix_weighted_tree_plain))
+    for tree, name, plain in entries:
+        before = kernels.LAUNCHES[name]
+        got = kernels.g1_suffix_weighted(*rows, tree=tree)
+        assert kernels.LAUNCHES[name] == before + 1
+        want = plain(*rows)
+        assert all(torch.equal(a, b)
+                   for a, b in zip((*got[0], *got[1]), (*want[0], *want[1])))
+
+
+def test_batch_verify_on_a_logical_grid():
+    """`batch_verify(mesh=...)` at l = 28 on a (4, 2) grid over cuda:0:
+    accepts the batch, rejects a swapped instance, and `identify` names
+    it, as the one-MSM verification does."""
+    dev = _card()
+    from curdleproofs_tpu_torch.backend import use_backend
+    from curdleproofs_tpu_torch.curdleproofs import (
+        CurdleproofsProof, generate_crs,
+    )
+    from curdleproofs_tpu_torch.parallel import batch_verify as bv
+    from curdleproofs_tpu_torch.parallel.sharded_msm import make_msm_mesh
+    from curdleproofs_tpu_torch.util import shuffle_permute_and_commit_input
+
+    ell = 28
+    rng = StdRng.seed_from_u64(41)
+    crs = generate_crs(ell)
+    insts, proofs = [], []
+    with use_backend(HostBackend()):
+        for _ in range(3):
+            perm = list(range(ell))
+            rng.shuffle(perm)
+            k = rng.rand_fr()
+            vr = [rng.rand_g1() for _ in range(ell)]
+            vs = [rng.rand_g1() for _ in range(ell)]
+            T, U, M, mb = shuffle_permute_and_commit_input(crs, vr, vs, perm,
+                                                           k, rng)
+            proofs.append(CurdleproofsProof.new(crs, vr, vs, T, U, M, perm,
+                                                k, mb, rng))
+            insts.append(bv.ShuffleInstance(vr, vs, T, U, M))
+    bad = list(insts)
+    bad[2] = bv.ShuffleInstance(insts[2].vec_S, insts[2].vec_R,
+                                insts[2].vec_T, insts[2].vec_U, insts[2].M)
+    mesh = make_msm_mesh(8, 2, devices=[dev] * 8)
+    kernels.reset_launches()
+    with use_backend(HostBackend()):
+        assert bv.batch_verify(crs, insts, proofs, rng, mesh=mesh) is True
+        assert bv.batch_verify(crs, bad, proofs, rng, mesh=mesh) is False
+        assert bv.batch_verify(crs, bad, proofs, rng, mesh=mesh,
+                               identify=True) == [True, True, False]
+        assert bv.batch_verify(crs, bad, proofs, rng) is False
+    assert kernels.LAUNCHES["g1_fold_madd"] > 0

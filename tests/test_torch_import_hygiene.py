@@ -47,6 +47,17 @@ with use_backend(TorchBackend(device="cpu")):
 from curdleproofs_tpu_torch.ops.g1_ops import g1_infinity
 K.g1_fold_rows(*g1_infinity((2, 3), "cpu"))
 K.g1_add_rows(g1_infinity((4,), "cpu"), g1_infinity((4,), "cpu"))
+import tempfile
+from curdleproofs_tpu_torch.parallel.distributed import (
+    all_hosts_agree, init_multihost)
+from curdleproofs_tpu_torch.parallel.sharded_msm import (
+    make_msm_mesh, sharded_msm)
+from curdleproofs_tpu_torch.utils.artifacts import write_artifact
+sharded_msm(pts, list(range(9)), make_msm_mesh(devices=["cpu"]))
+init_multihost()
+all_hosts_agree(True)
+with tempfile.TemporaryDirectory() as d:
+    write_artifact(d + "/a.json", {"ok": True})
 bad = sorted(n for n in sys.modules
              if n == "curdleproofs_tpu" or n.startswith("curdleproofs_tpu."))
 print("LOADED", bad)
@@ -68,6 +79,10 @@ def test_port_sources_import_no_jax():
     assert len(files) > 20
     assert {_PKG / "parallel" / "batch_verify.py",
             _PKG / "parallel" / "batch_prove.py",
+            _PKG / "parallel" / "sharded_msm.py",
+            _PKG / "parallel" / "distributed.py",
+            _PKG / "utils" / "artifacts.py",
+            _PKG / "tools" / "multihost_verify.py",
             _PKG / "ops" / "msm_grouped.py",
             _PKG / "ops" / "msm_tune.py",
             _PKG / "ops" / "msm.py",
