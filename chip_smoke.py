@@ -4,9 +4,12 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. the card: name and power limit as nvidia-smi reports them;
-2. build the eight CUDA sources from `curdleproofs_tpu_torch/csrc/`, then
-   hold each of the nine kernel wrappers of the MSM path against its plain
-   PyTorch version on the card (array equality), timed with CUDA events: at
+2. build the eight CUDA sources from `curdleproofs_tpu_torch/csrc/` into
+   an empty kernel store of this run's own (`ops/aot.py`; a temporary
+   `CURDLEPROOFS_AOT_DIR`, so the build is a store miss, with each source's
+   nvcc seconds), then hold each of the nine kernel wrappers of the MSM
+   path against its plain PyTorch version on the card (array equality),
+   timed with CUDA events: at
    the 626k MSM's own shapes (both folds on its plan, the merge's g1_add
    over its slots and its first scan step, the suffix kernel's chain entry,
    the reduction's scan step over W*G = 32,768 chunks, fq_mul at leave-
@@ -20,7 +23,7 @@ Phases (any failure exits non-zero; nothing is caught):
    (the 626k reduction's W*G) and 512 lanes (the protocol's c = 8 W*G), and
    g1_sqrt at n = 128 (a protocol MSM's padded bases). The three folds, the
    two suffix entries and fq_mul also carry `kernel_ms`, their device time
-   without host gaps (`kernel_probe.graph_ms`: launches captured in a CUDA
+   without host gaps (`common.graph_ms`: launches captured in a CUDA
    graph). The ptxas registers, spills and stack of fq_mul, the three
    folds, g1_add, both suffix entries and g1_sqrt go into their records
    (g1_add's scan entry under `scan_registers`, `scan_spill_bytes`; the
@@ -113,6 +116,25 @@ Phases (any failure exits non-zero; nothing is caught):
    pass AND-reduced right on both; then `distributed_batch_verify` in this
    process with a (2, 1) grid.
    Every phase 9 line carries the card's name and power limit.
+10. cold start (`ops/aot.py`, `ops/warmup.py`): three fresh processes of
+   `tools/cold_start_probe.py` on the store phase 2 filled: at 2^16 points
+   with CURDLEPROOFS_BG_INIT=0 and =1, and at 2^10 with `--first-launch`
+   (each C entry's library binding, then its first launch, timed); each
+   must find every library in the store (`aot_hit`), run no nvcc
+   (`built_s` 0) and give MSMs equal to the host's, and the background
+   init must record `init_s` and no error.
+   The phase split (the miss's export and nvcc seconds, then each process's
+   import, init, native, host generation, first touch, upload, first and
+   second MSM) is printed.
+11. the measurement tools (`curdleproofs_tpu_torch/tools/`), each once in
+   this process at a small size into a temporary `--out`: `aot_export` (a
+   hit: nothing rebuilt), `msm_sweep` at 2^10-2^12 with the 626k MSM's
+   ints against bytes and the 2^12 shard proxy, `msm_profile` at 2^12,
+   `grouped_profile` at one round of 256 relations x 128 columns,
+   `batch_prove_bench` at B = 4, l = 28, `sync_floor_probe`,
+   `speed_of_light` at 2^16, `scaling_report` and `multihost_scaling` at
+   B = 8, l = 28; each artifact must hold its keys, `match` true and the
+   stamps (commit, source sha256, torch version, this card's line).
 
 Kernel launches are counted for each driven path on its own (zeroed just
 before it, read just after it): the MSMs at 2^16 and 626k, the full-add
@@ -129,11 +151,16 @@ own main path under `launches` (the protocol run; for g1_fold_packed the
 full-add MSM, for the suffix kernel's chain entry the 626k MSM, whose c =
 16 reduction is the only one it serves on one device, for g1_ladder the run on
 `DeviceBackend`; named in `launches_path`) and every path's under
-`launches_by_path`; the last line is the device record.
+`launches_by_path`, with its source's nvcc seconds (`build_s`, phase 2),
+its C entries' library binding in a fresh process (`cold_lib_load_ms`)
+and their first launches (`cold_first_launch_ms`, phase 10); the last line
+is the device record.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import pathlib
@@ -150,14 +177,18 @@ import torch
 # `kernel_probe.py fold`
 from curdleproofs_tpu_torch.tools.kernel_probe import (
     FOLD_N as N_BIG, FOLD_ROWS_S, FOLD_SEED, FOLD_TILE as TILE, fold_data,
-    fold_inputs, fold_row_kinds, graph_ms,
+    fold_inputs, fold_row_kinds,
+)
+# the card line, its integer bound and the graph timer: shared with the tools
+from curdleproofs_tpu_torch.tools.common import (
+    MUL32_PER_FQ_MUL, card_line, graph_ms, int_rate as card_int_rate,
 )
 
 ROOT = pathlib.Path(__file__).resolve().parent
+TOOLS = ROOT / "curdleproofs_tpu_torch" / "tools"
+COLD_LOGN = 16              # phase 10: the cold processes' MSM, 2^16 points
 GOLDEN = ROOT / "tests" / "golden" / "whisk_shuffle_proof_128.hex"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
-IMAD_PER_CLK_PER_SM = 64    # 32-bit integer multiply-add, compute capability 9.0
-MUL32_PER_FQ_MUL = 600      # 300 32x32->64 products (CIOS, 12 limbs), 2 each
 MUL32_PER_FQ_SQR = 468      # 78 + 12 + 144 products (squaring, then reduction)
 N_SMALL = 1 << 16           # the c = 8 MSM family, and the kernels' width
 CHAIN_BLOCKS = 64           # phase 5: Whisk blocks in the synced chain
@@ -244,21 +275,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
-
-
-def max_sm_clock_hz() -> float:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.max.sm",
-         "--format=csv,noheader,nounits"],
-        capture_output=True, text=True, check=True).stdout
-    return float(out.strip().splitlines()[0]) * 1e6
-
-
 def sqrt_mul32(digits) -> int:
     """32-bit multiplies one point needs for (x^3 + b)^e, e given as the
     MSB-first 2-bit `digits`: x^2 and u^2 squared, x^3 and u^3 multiplied,
@@ -324,6 +340,7 @@ def main() -> int:
     )
     from curdleproofs_tpu_torch.host import native
     from curdleproofs_tpu_torch.host.rng import StdRng
+    from curdleproofs_tpu_torch.ops import aot
     from curdleproofs_tpu_torch.ops import kernels as K
     from curdleproofs_tpu_torch.ops import msm_device as md
     from curdleproofs_tpu_torch.ops.backend import TorchBackend
@@ -340,10 +357,19 @@ def main() -> int:
     )
 
     # -- phase 2: build, then every kernel against its plain version -------
+    # the build is the kernel store's export into an empty store (a miss:
+    # `__main__` points CURDLEPROOFS_AOT_DIR at a new temporary directory),
+    # which phase 10's cold processes then load from
     t0 = time.perf_counter()
-    reports = K.build(force=True)
-    log(f"build: {time.perf_counter() - t0:.1f} s (nvcc, one per source, "
-        f"in parallel)")
+    exported = aot.export()
+    export_s = time.perf_counter() - t0
+    if not all(r["built"] for r in exported.values()):
+        raise AssertionError("the kernel store was not empty: "
+                             f"{sorted(s for s, r in exported.items() if not r['built'])}")
+    reports = {s: r["ptxas"] for s, r in exported.items()}
+    log(f"build: {export_s:.1f} s (nvcc, one per source, in parallel, into "
+        f"the empty kernel store {aot.store_dir()}); nvcc s by source "
+        + json.dumps({s: round(r["build_s"], 2) for s, r in exported.items()}))
     for k, rep in reports.items():
         for line in rep.splitlines():
             if "registers" in line or "spill" in line:
@@ -351,8 +377,7 @@ def main() -> int:
     if not native.available():
         raise RuntimeError("native host runtime failed to build (g++)")
 
-    int_rate = (torch.cuda.get_device_properties(0).multi_processor_count
-                * IMAD_PER_CLK_PER_SM * max_sm_clock_hz())
+    int_rate = card_int_rate(0)
     log(f"bound rates: {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
         f"{int_rate / 1e12:.2f} T 32-bit multiplies/s")
 
@@ -1549,7 +1574,101 @@ def main() -> int:
         f"accepted in {dist_ms:.1f} ms, a T/U swap rejected")
     log("phase 9 record: " + json.dumps({"card": card, "msm_626k": shard_big}))
 
+    # -- phase 10: cold start from the kernel store ----------------------------
+    cold = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, bg, extra in (("store hit", "0", []),
+                                 ("store hit, background init", "1", []),
+                                 ("first launches", "0", ["--first-launch"])):
+            out = pathlib.Path(tmp) / f"cold{len(cold)}.json"
+            logn = "10" if extra else str(COLD_LOGN)
+            t0 = time.perf_counter()
+            r = subprocess.run(
+                [sys.executable, str(TOOLS / "cold_start_probe.py"), logn,
+                 "--out", str(out), *extra], cwd=ROOT, capture_output=True,
+                text=True, timeout=300,
+                env={**os.environ, "CURDLEPROOFS_BG_INIT": bg})
+            wall = time.perf_counter() - t0
+            if r.returncode:
+                raise AssertionError(f"cold start probe ({label}) failed: "
+                                     f"{r.stdout[-3000:]}{r.stderr[-3000:]}")
+            art = json.loads(out.read_text())
+            if art["aot_hit"] is not True or art["built_s"] != 0 \
+                    or art["match"] is not True \
+                    or (bg == "1" and ("init_s" not in art["bg_init"]
+                                       or "error" in art["bg_init"])):
+                raise AssertionError(f"cold start probe ({label}): "
+                                     + json.dumps(art))
+            cold[label] = {**art, "process_wall_s": wall}
+    split = {"store miss (phase 2)": {
+        "export_s": export_s,
+        "nvcc_s": {s: r["build_s"] for s, r in exported.items()}}}
+    split.update({label: {k: v for k, v in art.items()
+                          if k.endswith("_s") or k in (
+                              "aot_hit", "lib_load_ms", "first_launch_ms",
+                              "bg_init")}
+                  for label, art in cold.items()})
+    log(f"[{card}] phase 10, cold start: a fresh process on a kernel store "
+        f"hit runs no nvcc and its first MSM equals the host's; split "
+        + json.dumps(split))
+    lib_load = cold["first launches"]["lib_load_ms"]
+    first_launch = cold["first launches"]["first_launch_ms"]
+
+    # -- phase 11: the measurement tools, each once at a small size -----------
+    from curdleproofs_tpu_torch.tools import (
+        aot_export, batch_prove_bench, grouped_profile, msm_profile,
+        msm_sweep, multihost_scaling, scaling_report, speed_of_light,
+        sync_floor_probe,
+    )
+
+    tool_runs = (
+        (aot_export, [], {"sources", "built_s", "store"}),
+        (msm_sweep, ["10", "11", "12", "--big", str(N_BIG),
+                     "--proxy-logn", "12"], {"rows", "big", "shard_proxy"}),
+        (msm_profile, ["12"], {"results", "stage_map"}),
+        (grouped_profile, ["256", "128", "--bases", "32768", "--reps", "2"],
+         {"modes", "table_ms"}),
+        (batch_prove_bench, ["4", "28"], {"cold_s", "warm_s", "gates"}),
+        (sync_floor_probe, [], {"sync_floor_ms", "prover_device_floor_ms",
+                                "host_prove_ms"}),
+        (speed_of_light, [], {"fq_mul_per_s", "g1_add_per_s",
+                              "fq_mul_pct_of_sol", "g1_add_pct_of_sol"}),
+        (scaling_report, [], {"rows"}),
+        (multihost_scaling, ["8", "28", "--rounds", "2"],
+         {"single_host", "per_host_isolated", "live_world2"}),
+    )
+    tools_out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for mod, argv, keys in tool_runs:
+            name = mod.__name__.rsplit(".", 1)[1]
+            out = pathlib.Path(tmp) / f"{name}.json"
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):  # its artifact
+                rc = mod.main([*argv, "--out", str(out)])
+            wall = time.perf_counter() - t0
+            art = json.loads(out.read_text())
+            st = art.get("stamps", {})
+            if rc != 0 or art.get("match") is not True \
+                    or not keys <= set(art) or st.get("card") != card \
+                    or not st.get("commit") or len(st.get("source_sha256",
+                                                           "")) != 64 \
+                    or st.get("torch") != torch.__version__:
+                raise AssertionError(f"tool {name} (rc {rc}): "
+                                     + json.dumps(art)[:4000])
+            tools_out[name] = {"wall_s": wall, **{k: art[k] for k in keys}}
+            log(f"[{card}] tool {name} {' '.join(argv)}: equal to the host, "
+                f"stamped, {wall:.1f} s")
+    if any(r["built"] for r in tools_out["aot_export"]["sources"].values()):
+        raise AssertionError("aot_export rebuilt a stored library")
+    log("phase 11 record: " + json.dumps({"card": card, "tools": tools_out}))
+
     for name, rec in records.items():
+        src = K.source_of(name)
+        rec["build_s"] = exported[src]["build_s"]
+        rec["cold_lib_load_ms"] = {e: lib_load[e] for e in K.ENTRIES[src]}
+        rec["cold_first_launch_ms"] = {
+            e: ms for e, ms in first_launch.items()
+            if e.split()[0] in K.ENTRIES[src]}
         path = OWN_PATH.get(name, MAIN_PATH)
         rec["launches"] = by_path[path][name]
         rec["launches_path"] = ("kernel check only (no caller in the JAX "
@@ -1564,4 +1683,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    # an empty kernel store of this run's own: phase 2 builds into it (a
+    # miss), phase 10's fresh processes load from it (hits)
+    with tempfile.TemporaryDirectory(prefix="curdleproofs_aot_") as store:
+        os.environ["CURDLEPROOFS_AOT_DIR"] = store
+        sys.exit(main())

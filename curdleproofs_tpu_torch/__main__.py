@@ -190,15 +190,16 @@ def cmd_tracker_verify(args) -> int:
 
 def cmd_info(args) -> int:
     """The backend's name (or why it cannot be built here), the torch
-    version, the card (or that there is none), the kernels built under
-    `_build/cuda`, and whether the native runtime is present."""
+    version, the card (or that there is none), the kernel store and the
+    kernels it holds for this tree, and whether the native runtime is
+    present."""
     import os
 
     import torch
 
     from . import backend as be
     from .host import native
-    from .ops import kernels
+    from .ops import aot
 
     info = {"native_runtime": bool(native.available())}
     name = os.environ.get("CURDLEPROOFS_BACKEND", "torch").lower()
@@ -209,8 +210,8 @@ def cmd_info(args) -> int:
     info["torch"] = torch.__version__
     info["device"] = (torch.cuda.get_device_name(0)
                       if torch.cuda.is_available() else "none (no CUDA card)")
-    info["kernels_built"] = sorted(
-        p.name[3:-3] for p in kernels.BUILD_DIR.glob("lib*.so"))
+    info["kernel_store"] = str(aot.store_dir())
+    info["kernels_built"] = aot.stored()
     print(json.dumps(info, indent=1))
     return 0
 

@@ -127,6 +127,24 @@ def _diag_sums(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return cols
 
 
+def broadcast_shapes(*shapes) -> torch.Size:
+    """`torch.broadcast_shapes`, in plain Python.  The torch function
+    imports torch.fx's symbolic shapes (and sympy) at its first call, which
+    a fresh process then paid inside its first kernel launch: 2.8-3.6 s on
+    the H100 machine (`tools/cold_start_probe.py --first-launch`)."""
+    out: list[int] = []
+    for shape in shapes:
+        shape = tuple(shape)
+        if len(shape) > len(out):
+            out[:0] = [1] * (len(shape) - len(out))
+        for i, d in enumerate(shape, len(out) - len(shape)):
+            if d != out[i] and d != 1 and out[i] != 1:
+                raise RuntimeError(f"shapes {shapes} do not broadcast")
+            if out[i] == 1:
+                out[i] = d
+    return torch.Size(out)
+
+
 def mul_rows(a: torch.Tensor, b: torch.Tensor, p: int,
              n0_inv: int) -> torch.Tensor:
     """Montgomery product of [L, *b] int64 canonical limbs -> [L, *b]
@@ -137,7 +155,7 @@ def mul_rows(a: torch.Tensor, b: torch.Tensor, p: int,
     which the previous step's carry-forward provides.  Every column stays
     below 2^39, far inside int64."""
     L = a.shape[0]
-    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    batch = broadcast_shapes(a.shape[1:], b.shape[1:])
     a = a.expand(L, *batch).reshape(L, -1)
     b = b.expand(L, *batch).reshape(L, -1)
     n = a.shape[1]

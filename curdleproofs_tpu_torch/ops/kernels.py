@@ -33,35 +33,38 @@ counts under `g1_add`; the tree entry of g1_suffix_weighted.cu counts under
 `g1_suffix_weighted_tree`; the ladder's three entries count under
 `g1_ladder`).
 
-Build: `nvcc -gencode arch=compute_90a,code=sm_90a` into `../_build/cuda/`
-at first use, one process per source, all started together (`build()`),
-with the generated `sqrt_constants.h` (from `constants.py`) beside them.
-Every C entry returns `cudaGetLastError()`, and the wrapper raises on non-0.
+Build: `nvcc -gencode arch=compute_90a,code=sm_90a` at first use, one
+process per source, all started together, with the generated
+`sqrt_constants.h` (from `constants.py`) beside them, into the kernel store
+(`aot.py`), which keys each library by the sources' content: a process that
+finds them there loads them and runs no nvcc.  Every C entry returns
+`cudaGetLastError()`, and the wrapper raises on non-0.  `warm_entries`
+launches every C entry once at a tiny width (the warm-up's), and
+`launches_into` counts a thread's launches apart from `LAUNCHES`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import fcntl
 import functools
-import os
 import pathlib
 import re
-import shutil
-import subprocess
 import threading
+import time
 
 import torch
 
+from . import aot
 from ..constants import CURVE_B, Q
-from .field import FQ, limb_col, mul_rows, unpack_pairs
+from .field import FQ, broadcast_shapes, limb_col, mul_rows, unpack_pairs
 from .g1_ops import (
     PointsXYZ, g1_add64, g1_double64, g1_infinity64, g1_madd64, g1_select,
 )
 from .limbs import FQ_LIMBS as L
 
-__all__ = ["KERNELS", "LAUNCHES", "SQRT_DIGITS", "build", "reset_launches",
-           "write_constants",
+__all__ = ["ENTRIES", "KERNELS", "LAUNCHES", "SQRT_DIGITS", "constants_text",
+           "launches_into", "reset_launches", "warm_entries", "write_constants",
            "fq_mul", "fq_mul_plain", "g1_add", "g1_add_plain",
            "g1_add_scan", "g1_add_scan_plain",
            "g1_fold_madd", "g1_fold_madd_plain",
@@ -79,14 +82,20 @@ KERNELS = ("fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted",
 # the wrappers that launch another kernel's source (and its C entry)
 _SHARES_SOURCE = {"g1_add_rows": "g1_add",
                   "g1_suffix_weighted_tree": "g1_suffix_weighted"}
-SOURCES = tuple(k for k in KERNELS if k not in _SHARES_SOURCE)
 LAUNCHES = {k: 0 for k in KERNELS}
 _LAUNCHES_LOCK = threading.Lock()  # a stream's worker thread launches too
+_COUNT_INTO = threading.local()    # a thread's own counts (`launches_into`)
 
-CSRC = pathlib.Path(__file__).resolve().parents[1] / "csrc"
-BUILD_DIR = CSRC.parent / "_build" / "cuda"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+CSRC = aot.CSRC
+
+# each source's C entries (`cp_<entry>`)
+ENTRIES = {"fq_mul": ("fq_mul",), "g1_add": ("g1_add", "g1_add_scan"),
+           "g1_fold_madd": ("g1_fold_madd",),
+           "g1_suffix_weighted": ("g1_suffix_weighted",
+                                  "g1_suffix_weighted_tree"),
+           "g1_fold_packed": ("g1_fold_packed",), "g1_sqrt": ("g1_sqrt",),
+           "g1_fold_rows": ("g1_fold_rows",),
+           "g1_ladder": ("g1_batch_mul", "g1_batch_mul_each", "g1_fold")}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -128,42 +137,32 @@ def reset_launches() -> None:
             LAUNCHES[k] = 0
 
 
+@contextlib.contextmanager
+def launches_into(counts: dict):
+    """Count this thread's kernel launches into `counts` (by kernel name)
+    instead of `LAUNCHES`, so that work beside a counted path (the warm-up
+    thread's) does not show in that path's counts."""
+    prev = getattr(_COUNT_INTO, "counts", None)
+    _COUNT_INTO.counts = counts
+    try:
+        yield counts
+    finally:
+        _COUNT_INTO.counts = prev
+
+
 # --------------------------------------------------------------------------
 # build and load
 # --------------------------------------------------------------------------
-
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
-            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels are "
-                       "built from source at first use")
-
-
-def _so(name: str) -> pathlib.Path:
-    return BUILD_DIR / f"lib{name}.so"
-
-
-def _fresh(name: str) -> bool:
-    """Built after its source, the shared headers and this module (which
-    generates `sqrt_constants.h`)."""
-    so = _so(name)
-    srcs = [CSRC / f"{name}.cu", pathlib.Path(__file__), *CSRC.glob("*.cuh")]
-    return so.exists() and so.stat().st_mtime > max(s.stat().st_mtime
-                                                    for s in srcs)
-
 
 def _u32s(x: int, n: int) -> str:
     return ", ".join(f"0x{(x >> (32 * i)) & 0xFFFFFFFF:08x}u" for i in range(n))
 
 
-def write_constants(directory: pathlib.Path = BUILD_DIR) -> None:
-    """`sqrt_constants.h` for g1_sqrt.cuh, from the port's constants, into
-    `directory` (the build's include directory)."""
+def constants_text() -> str:
+    """`sqrt_constants.h` for g1_sqrt.cuh, from the port's constants (a
+    build input: the kernel store's key hashes this text)."""
     digits = ", ".join(map(str, SQRT_DIGITS))
-    (directory / "sqrt_constants.h").write_text(f"""\
+    return f"""\
 // generated by curdleproofs_tpu_torch/ops/kernels.py; do not edit
 #pragma once
 #include <stdint.h>
@@ -174,39 +173,12 @@ CC_CONST const uint32_t B_MONT[12] = {{{_u32s(FQ.to_mont(CURVE_B), 12)}}};
 constexpr int SQRT_NDIGITS = {len(SQRT_DIGITS)};
 CC_CONST const uint8_t SQRT_DIGITS[SQRT_NDIGITS] = {{{digits}}};
 }}  // namespace cc
-""")
+"""
 
 
-def build(force: bool = False) -> dict[str, str]:
-    """Compile every stale kernel, one nvcc per source, all in parallel.
-    Returns each built kernel's ptxas report (registers, spills); raises with
-    the compiler's output if any build fails."""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    reports: dict[str, str] = {}
-    with open(BUILD_DIR / "build.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        todo = [k for k in SOURCES if force or not _fresh(k)]
-        nvcc = _nvcc() if todo else ""
-        write_constants()
-        procs = {}
-        for k in todo:
-            tmp = _so(k).with_suffix(f".so.{os.getpid()}.tmp")
-            cmd = [nvcc, *NVCC_FLAGS, "-I", str(BUILD_DIR), "-o", str(tmp),
-                   str(CSRC / f"{k}.cu")]
-            procs[k] = (tmp, subprocess.Popen(
-                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        failed = []
-        for k, (tmp, proc) in procs.items():
-            out, _ = proc.communicate()
-            reports[k] = out
-            if proc.returncode != 0:
-                failed.append(f"--- {k} ---\n{out}")
-            else:
-                tmp.replace(_so(k))
-        if failed:
-            raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))
-    return reports
+def write_constants(directory: pathlib.Path) -> None:
+    """`constants_text()` as `sqrt_constants.h` in `directory`."""
+    (directory / "sqrt_constants.h").write_text(constants_text())
 
 
 def ptxas_usage(report: str, kernel: str) -> dict[str, int]:
@@ -232,9 +204,7 @@ def ptxas_usage(report: str, kernel: str) -> dict[str, int]:
 
 @functools.cache
 def _lib(source: str, entry: str):
-    if not _fresh(source):
-        build()
-    fn = getattr(ctypes.CDLL(str(_so(source))), f"cp_{entry}")
+    fn = getattr(ctypes.CDLL(aot.load(source)["path"]), f"cp_{entry}")
     fn.argtypes = _ARGTYPES[entry]
     fn.restype = ctypes.c_int
     return fn
@@ -249,8 +219,12 @@ def _launch(name: str, device: torch.device, *args, entry=None) -> None:
     if rc != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: "
                            f"cudaError {rc}")
+    counts = getattr(_COUNT_INTO, "counts", None)
     with _LAUNCHES_LOCK:
-        LAUNCHES[name] += 1
+        if counts is None:
+            LAUNCHES[name] += 1
+        else:
+            counts[name] = counts.get(name, 0) + 1
 
 
 def _on_cpu(*ts: torch.Tensor) -> bool:
@@ -284,7 +258,7 @@ def fq_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     which every lane reads; any other broadcast is materialised."""
     if _on_cpu(a, b):
         return fq_mul_plain(a, b)
-    batch = torch.broadcast_shapes(a.shape[1:], b.shape[1:])
+    batch = broadcast_shapes(a.shape[1:], b.shape[1:])
     a, b = (t.reshape(L, 1).contiguous() if t[0].numel() == 1
             else t.expand(L, *batch).reshape(L, -1).contiguous()
             for t in (a, b))
@@ -310,7 +284,7 @@ def g1_add(p: PointsXYZ, q: PointsXYZ) -> PointsXYZ:
     """Complete add of [24, *batch] point batches (broadcasting)."""
     if _on_cpu(*p, *q):
         return g1_add_plain(p, q)
-    batch = torch.broadcast_shapes(*(c.shape[1:] for c in (*p, *q)))
+    batch = broadcast_shapes(*(c.shape[1:] for c in (*p, *q)))
     ins = [c.expand(L, *batch).reshape(L, -1).contiguous() for c in (*p, *q)]
     n = ins[0].shape[1]
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
@@ -696,3 +670,59 @@ def g1_ladder(points: PointsXYZ, words: torch.Tensor,
     _launch("g1_ladder", words.device, *ptrs,
             *(o.data_ptr() for o in outs), n, entry=entry)
     return PointsXYZ(*outs)
+
+
+# --------------------------------------------------------------------------
+# warm-up
+# --------------------------------------------------------------------------
+
+def warm_entries(device, times: dict | None = None) -> None:
+    """Launch every C entry of every source once at a tiny width on the
+    card `device`: the libraries load (from the kernel store, or built)
+    and, as CUDA loads a module's kernels lazily, at their first launch,
+    each kernel loads now rather than in the first real launch.  The
+    inputs are zeros; the outputs are dropped.  With `times`, each launch
+    is synchronized and its wall ms recorded under its C entry's name (a
+    process's first launch of a source includes loading its library).
+    Call it inside `launches_into` to keep its launches out of
+    `LAUNCHES`."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError(f"the warm-up launches kernels on a card, not {dev}")
+
+    def z(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=dev)
+
+    p = PointsXYZ(z(L, 1), z(L, 1), z(L, 1))
+    ext = (z(L // 2, 3), z(L // 2, 3), z(3))
+    calls = [
+        ("fq_mul", lambda: fq_mul(p.x, p.y)),
+        ("g1_add", lambda: g1_add(p, p)),
+        ("g1_add_scan", lambda: g1_add_scan(
+            PointsXYZ(z(L, 2), z(L, 2), z(L, 2)),
+            torch.zeros(2, dtype=torch.int64, device=dev), 1)),
+        ("g1_fold_madd", lambda: g1_fold_madd(*ext, z(8, 1))),
+        ("g1_fold_packed", lambda: g1_fold_packed(*ext, z(8, 1))),
+        ("g1_suffix_weighted", lambda: g1_suffix_weighted(
+            z(L, 1, 1), z(L, 1, 1), z(L, 1, 1), tree=False)),
+        # the tree entry's two instantiations
+        ("g1_suffix_weighted_tree Cb=8", lambda: g1_suffix_weighted_tree(
+            z(L, 8, 1), z(L, 8, 1), z(L, 8, 1))),
+        ("g1_suffix_weighted_tree Cb=16", lambda: g1_suffix_weighted_tree(
+            z(L, 16, 1), z(L, 16, 1), z(L, 16, 1))),
+        ("g1_sqrt", lambda: g1_sqrt(z(L // 2, 1))),
+        ("g1_fold_rows", lambda: g1_fold_rows(z(L, 1, 1), z(L, 1, 1),
+                                              z(L, 1, 1))),
+        ("g1_batch_mul", lambda: g1_ladder(p, z(8))),
+        ("g1_batch_mul_each", lambda: g1_ladder(p, z(8, 1))),
+        ("g1_fold", lambda: g1_ladder(p, z(8), p)),
+    ]
+    for entry, call in calls:
+        if times is None:
+            call()
+            continue
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        call()
+        torch.cuda.synchronize(dev)
+        times[entry] = (time.perf_counter() - t0) * 1e3

@@ -11,8 +11,8 @@ wrapper; a span also holds the card's wait for the launch), then one under
 `torch.profiler` (device ms summed by CUDA kernel name: every kernel of
 the port, then torch's 15 costliest; the card's busy time against the
 prove's wall).  `--tree` imports `curdleproofs_tpu_torch`
-from another checkout (run this file by its path), so two trees are traced
-with one script.
+from another checkout that has the kernel store (`ops/aot.py`; run this
+file by its path), so two trees are traced with one script.
 
 `suffix`: g1_suffix_weighted's chain and tree entries at Cb = 8 and 16 over
 a sweep of WG, each timed with `graph_ms` in turns (chain, tree, tree,
@@ -21,8 +21,8 @@ chain): the crossover that `kernels.SUFFIX_TREE_MAX_WG` is set from.
 `fold`: the three folds on the inputs `chip_smoke.py` checks them on
 (`fold_data`, `fold_inputs`: the 626k MSM's plan for g1_fold_madd and
 g1_fold_packed, [24, 8, 2^17] rows of it for g1_fold_rows), each kernel's
-device time by `graph_ms`, the ptxas registers and spills of each kernel
-this process built, and the plan's row kinds (`fold_row_kinds`).  With
+device time by `graph_ms`, each kernel's ptxas registers and spills (as
+the kernel store recorded them), and the plan's row kinds (`fold_row_kinds`).  With
 `--tree`, one process a tree, taken in turns, times two trees' kernels on
 one card.
 
@@ -35,12 +35,16 @@ import argparse
 import json
 import pathlib
 import random
-import subprocess
 import sys
 import time
 
 import numpy as np
 import torch
+
+if __package__:
+    from .common import card_line, graph_ms
+else:   # run by its path: import no package before `--tree` picks one
+    from common import card_line, graph_ms
 
 # The 626k MSM (batch verification's deduped MSM at B = 1024, l = 252) whose
 # shapes `chip_smoke.py` and `fold` both measure the folds at: FOLD_TILE
@@ -48,38 +52,6 @@ import torch
 # FOLD_ROWS_S slots.
 FOLD_SEED = 2024
 FOLD_N, FOLD_TILE, FOLD_ROWS_S = 626_000, 4096, 1 << 17
-
-
-def graph_ms(fn, per_graph: int = 20, replays: int = 10) -> float:
-    """Device ms a call of `fn` without host gaps: `per_graph` calls
-    captured in one CUDA graph, replayed `replays` times between two events
-    (after one untimed replay).  The kernels' wrappers count their launches
-    once, at capture."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream().wait_stream(side)
-    g = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(g):
-        for _ in range(per_graph):
-            fn()
-    g.replay()
-    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(replays):
-        g.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (per_graph * replays)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def _prove_once(golden: str):
@@ -105,12 +77,13 @@ def _prove_once(golden: str):
 
 def trace(tree: pathlib.Path) -> dict:
     from curdleproofs_tpu_torch.backend import use_backend
+    from curdleproofs_tpu_torch.ops import aot
     from curdleproofs_tpu_torch.ops import kernels as K
     from curdleproofs_tpu_torch.ops.backend import TorchBackend
 
     golden = (tree / "tests" / "golden" /
               "whisk_shuffle_proof_128.hex").read_text().strip()
-    K.build()
+    aot.export()
     spans = []
     launch = K._launch
 
@@ -164,11 +137,12 @@ def trace(tree: pathlib.Path) -> dict:
 
 def suffix_sweep() -> dict:
     from curdleproofs_tpu_torch.host.rng import StdRng
+    from curdleproofs_tpu_torch.ops import aot
     from curdleproofs_tpu_torch.ops import kernels as K
     from curdleproofs_tpu_torch.ops.g1_ops import points_to_device
 
     dev = torch.device("cuda")
-    K.build()
+    aot.export()
     rng = StdRng.seed_from_u64(5)
     a = points_to_device([rng.rand_g1() for _ in range(256)], dev)
     b = points_to_device([rng.rand_g1() for _ in range(256)], dev)
@@ -288,12 +262,13 @@ def fold_inputs(bases, scalars):
 
 def fold_probe() -> dict:
     from curdleproofs_tpu_torch.host.rng import StdRng
+    from curdleproofs_tpu_torch.ops import aot
     from curdleproofs_tpu_torch.ops import kernels as K
     from curdleproofs_tpu_torch.ops import msm_device as md
 
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    reports = K.build()
+    reports = {s: rec["ptxas"] for s, rec in aot.export().items()}
     build_s = time.perf_counter() - t0
     usage = {}
     for src, rep in reports.items():

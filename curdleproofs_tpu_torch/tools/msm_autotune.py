@@ -136,7 +136,7 @@ def tune(logns, device="cuda", log=print) -> dict[int, tuple[dict, str]]:
 def main(argv: list[str]) -> int:
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
     from curdleproofs_tpu_torch.ops.msm_tune import table_path
-    from curdleproofs_tpu_torch.tools.kernel_probe import card_line
+    from curdleproofs_tpu_torch.tools.common import card_line
 
     logns = [int(a) for a in argv] or [10, 12, 14, 16, 18, 20]
     print(card_line(), flush=True)  # raises without a card, as tune() does

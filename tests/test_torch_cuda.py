@@ -885,3 +885,57 @@ def test_batch_verify_on_a_logical_grid():
                                identify=True) == [True, True, False]
         assert bv.batch_verify(crs, bad, proofs, rng) is False
     assert kernels.LAUNCHES["g1_fold_madd"] > 0
+
+
+# the warm-up's launches of every C entry, counted by kernel name
+WARM_LAUNCHES = {"fq_mul": 1, "g1_add": 2, "g1_fold_madd": 1,
+                 "g1_fold_packed": 1, "g1_suffix_weighted": 1,
+                 "g1_suffix_weighted_tree": 2, "g1_sqrt": 1,
+                 "g1_fold_rows": 1, "g1_ladder": 3}
+
+
+def test_store_hit_launches_every_entry(monkeypatch):
+    """Every library from a kernel store hit (a fresh process's view: the
+    loaded records and the bound entries dropped), each C entry launched
+    once, counted apart from LAUNCHES; then fq_mul at leave-Montgomery's
+    [24, 96] equal to its plain version."""
+    from curdleproofs_tpu_torch.ops import aot
+
+    dev = _card()
+    aot.export()                       # fills the store where it lacks
+    monkeypatch.setattr(aot, "_LOADED", {})
+    kernels._lib.cache_clear()
+    before = dict(kernels.LAUNCHES)
+    times = {}
+    with kernels.launches_into({}) as apart:
+        kernels.warm_entries(dev, times)
+    torch.cuda.synchronize()
+    assert apart == WARM_LAUNCHES
+    assert kernels.LAUNCHES == before
+    assert len(times) == 13 and all(ms > 0 for ms in times.values())
+    for s in aot.SOURCES:
+        rec = aot.maybe_load(s)
+        assert rec is not None and rec["built"] is False, s
+        assert "registers" in rec["ptxas"]
+    rng = np.random.default_rng(5)
+    a = torch.from_numpy(rng.integers(0, 1 << 16, (24, 96), dtype=np.int32))
+    b = torch.from_numpy(rng.integers(0, 1 << 16, (24, 1), dtype=np.int32))
+    a[-1] &= 0x0FFF                    # residues below q
+    b[-1] &= 0x0FFF
+    got = kernels.fq_mul(a.to(dev), b.to(dev)).cpu()
+    assert torch.equal(got, kernels.fq_mul_plain(a, b))
+
+
+def test_background_init_on_card(monkeypatch):
+    from curdleproofs_tpu_torch.ops import warmup
+
+    _card()
+    monkeypatch.setattr(warmup, "_thread", None)
+    monkeypatch.setattr(warmup, "_result", {})
+    before = dict(kernels.LAUNCHES)
+    warmup.start_background_init()
+    r = warmup.wait_ready(timeout=600)
+    assert "error" not in r, r
+    assert 0 < r["init_s"] <= r["total_s"]
+    assert r["launches"] == WARM_LAUNCHES
+    assert kernels.LAUNCHES == before

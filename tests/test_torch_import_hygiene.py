@@ -58,6 +58,13 @@ init_multihost()
 all_hosts_agree(True)
 with tempfile.TemporaryDirectory() as d:
     write_artifact(d + "/a.json", {"ok": True})
+from curdleproofs_tpu_torch.ops import aot, warmup
+aot.store_dir()
+aot.maybe_load("fq_mul")
+warmup.start_background_init()
+warmup.wait_ready(120)
+from curdleproofs_tpu_torch.tools import common
+common.stamps(common.torch.device("cpu"))
 bad = sorted(n for n in sys.modules
              if n == "curdleproofs_tpu" or n.startswith("curdleproofs_tpu."))
 print("LOADED", bad)
@@ -87,7 +94,14 @@ def test_port_sources_import_no_jax():
             _PKG / "ops" / "msm_tune.py",
             _PKG / "ops" / "msm.py",
             _PKG / "__main__.py",
-            _PKG / "tools" / "msm_autotune.py"} <= set(files)
+            _PKG / "ops" / "aot.py",
+            _PKG / "ops" / "warmup.py",
+            *(_PKG / "tools" / f"{name}.py" for name in (
+                "msm_autotune", "aot_export", "batch_prove_bench",
+                "cold_start_probe", "common", "grouped_profile",
+                "msm_profile", "msm_sweep", "multihost_scaling",
+                "scaling_report", "speed_of_light", "sync_floor_probe"))} \
+        <= set(files)
     offenders = [str(f.relative_to(_REPO)) for f in files
                  if pat.search(f.read_text())]
     assert offenders == []
