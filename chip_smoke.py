@@ -4,10 +4,10 @@
 
 Phases (any failure exits non-zero; nothing is caught):
 1. the card: name and power limit as nvidia-smi reports them;
-2. build the eight CUDA sources from `curdleproofs_tpu_torch/csrc/` into
+2. build the nine CUDA sources from `curdleproofs_tpu_torch/csrc/` into
    an empty kernel store of this run's own (`ops/aot.py`; a temporary
    `CURDLEPROOFS_AOT_DIR`, so the build is a store miss, with each source's
-   nvcc seconds), then hold each of the nine kernel wrappers of the MSM
+   nvcc seconds), then hold each of the ten kernel wrappers of the MSM
    path against its plain PyTorch version on the card (array equality),
    timed with CUDA events: at
    the 626k MSM's own shapes (both folds on its plan, the merge's g1_add
@@ -21,11 +21,14 @@ Phases (any failure exits non-zero; nothing is caught):
    timed against each other in turns; fq_mul at leave-Montgomery's [24, 3W
    = 96]), fq_mul, g1_add and g1_add_rows at 2^16, g1_add at 32,768 lanes
    (the 626k reduction's W*G) and 512 lanes (the protocol's c = 8 W*G), and
-   g1_sqrt at n = 128 (a protocol MSM's padded bases). The three folds, the
-   two suffix entries and fq_mul also carry `kernel_ms`, their device time
-   without host gaps (`common.graph_ms`: launches captured in a CUDA
-   graph). The ptxas registers, spills and stack of fq_mul, the three
-   folds, g1_add, both suffix entries and g1_sqrt go into their records
+   g1_sqrt at n = 128 (a protocol MSM's padded bases), g1_horner on window
+   sums taken from the 626k fold's slots at 1536 relations (a table-mode
+   same-msm round at B = 256) and 96 (slot mode's at B = 16). The three
+   folds, the two suffix entries and fq_mul also carry `kernel_ms`, their
+   device time without host gaps (`common.graph_ms`: launches captured in
+   a CUDA graph). The ptxas registers, spills and stack of fq_mul, the three
+   folds, g1_add, both suffix entries, g1_sqrt and g1_horner go into their
+   records
    (g1_add's scan entry under `scan_registers`, `scan_spill_bytes`; the
    tree entry at Cb = 16 under `cb16_`), and the records of g1_fold_packed
    and g1_fold_rows their rows by kind (`kernel_probe.fold_row_kinds`, from
@@ -61,13 +64,16 @@ Phases (any failure exits non-zero; nothing is caught):
    prover's, all 256 batch-verify on the card, one swapped instance is
    rejected; then the fold at an IPA round's table plan (T = 136, over
    this batch's 4,194,305-entry table), its repack alone in turns with it,
-   Horner's g1_add at 1536 lanes and fq_mul at the table's [24, 7N], each
-   against its plain version;
+   g1_horner at 1536 relations on that fold's window sums, g1_add at the
+   table's multiples (d P + P over its bases) and fq_mul at the table's
+   [24, 7N], each against its plain version; every dispatch's Horner stage
+   is one g1_horner launch and nothing else;
    (b) slot mode (`CURDLEPROOFS_TABLE=0`) with the full-add fold at
    l = 124, B = 16: every proof's bytes equal the sequential host
    prover's, the merges made g1_add scan launches; then the full-add fold
-   on a same-msm round's slot plan and the suffix kernel's tree entry on
-   its c = 4 buckets, against their plain versions.
+   on a same-msm round's slot plan, the suffix kernel's tree entry on its
+   c = 4 buckets and g1_horner on that round's window sums, against their
+   plain versions.
    Each prints proofs/s against the sequential host prover's ms a proof,
    `batch_prove.last_timings` (bases_s with the table build table_s,
    pack_s, device_s, decode_s, host_other_s), peak memory and, per
@@ -76,9 +82,11 @@ Phases (any failure exits non-zero; nothing is caught):
 
 8. the reference's other backends and the CLI:
    (a) the ladder kernel `g1_ladder` (csrc/g1_ladder.cu), its three entries
-   (one scalar, one a point, the fold) against `g1_ladder_plain` (array
-   equality) at n = 124 and 252 (the grand product's widths) and 2^16,
-   timed with CUDA events, with its ptxas record;
+   (one scalar, one a point, the fold), against `g1_ladder_plain` after
+   affine normalization (the GLV chain adds in another order) at n = 124
+   and 252 (the grand product's widths) and 2^16, timed with CUDA events,
+   with the kernel's ptxas record (one kernel: the entries are its
+   run-time arguments);
    (b) phase 4's run on the all-device `DeviceBackend` (the reference's
    `TpuBackend`): the golden l = 124 bytes, verify, tamper rejected, l = 252
    proved and verified, the ladder launched on the path;
@@ -223,6 +231,7 @@ REPLACES = {
     "g1_fold_rows": "curdleproofs_tpu/ops/pallas_kernels.py:454",
     "g1_add_rows": "curdleproofs_tpu/ops/pallas_kernels.py:527",
     "g1_ladder": "curdleproofs_tpu/ops/msm.py:73",
+    "g1_horner": "curdleproofs_tpu/ops/msm_grouped.py:255",
 }
 NO_CALLER = {"g1_fold_rows", "g1_add_rows"}
 BIG_PATH = f"msm n={N_BIG}"
@@ -241,12 +250,12 @@ EXPECTED = {
     CHAIN_PATH: _MSM8 | {"g1_sqrt"},
     BATCH_PATH: _MSM8 | {"g1_sqrt"},
     # the batched prover: one compressed upload, the table's multiples and
-    # products (table mode), the fold, Horner's adds, leave-Montgomery; slot
-    # mode also the merge's scan steps (checked per stage) and the c = 4
-    # reduction, n_rel * 64 <= 8192 lanes: the tree entry
-    TABLE_PATH: {"fq_mul", "g1_add", "g1_fold_madd", "g1_sqrt"},
+    # products (table mode), the fold, Horner (one g1_horner a dispatch);
+    # slot mode also the merge's scan steps (checked per stage) and the
+    # c = 4 reduction, n_rel * 64 <= 8192 lanes: the tree entry
+    TABLE_PATH: {"fq_mul", "g1_add", "g1_fold_madd", "g1_sqrt", "g1_horner"},
     SLOT_PATH: {"fq_mul", "g1_add", "g1_fold_packed", "g1_sqrt",
-                "g1_suffix_weighted_tree"},
+                "g1_suffix_weighted_tree", "g1_horner"},
     # the all-device backend: the MSMs from 8 points, and the ladder for
     # the commitment's and the grand product's scalar multiplications
     DEVICE_PATH: _MSM8 | {"g1_sqrt", "g1_ladder"},
@@ -268,7 +277,10 @@ EXPECTED = {
 }
 # each kernel's own main path, where it is not the protocol run
 OWN_PATH = {"g1_fold_packed": FULL_ADD_PATH, "g1_suffix_weighted": BIG_PATH,
-            "g1_ladder": DEVICE_PATH}
+            "g1_ladder": DEVICE_PATH, "g1_horner": TABLE_PATH}
+# g1_horner's widths: a same-msm round's relations (6 a proof) in table
+# mode at B = 256 and in slot mode at B = 16
+HORNER_RELS = (6 * PROVE_B, 6 * SLOT_B)
 
 
 def log(*a):
@@ -313,6 +325,21 @@ def event_ms(fn, reps: int):
 def max_abs_err(got, want) -> int:
     return max(int((g.long() - w.long()).abs().max()) for g, w in
                zip(got, want))
+
+
+def affine_err(got, want, fq_mul) -> int:
+    """Max |difference| of the cross products X1 Z2, X2 Z1 and Y1 Z2, Y2 Z1
+    of two [24, n] point batches (Montgomery products, `fq_mul`): 0 where
+    each pair is one point (affine normalization without an inversion).
+    Each `got` point must be a valid representative: z = 0 only as
+    (0 : y : 0) with y != 0."""
+    gx, gy, gz = got
+    wx, wy, wz = want
+    inf = ~gz.bool().any(dim=0)
+    if (inf & (gx.bool().any(dim=0) | ~gy.bool().any(dim=0))).any():
+        raise AssertionError("a point at z = 0 that is not (0 : y : 0)")
+    return max(max_abs_err((fq_mul(gx, wz),), (fq_mul(wx, gz),)),
+               max_abs_err((fq_mul(gy, wz),), (fq_mul(wy, gz),)))
 
 
 def stage_ms(marks) -> dict:
@@ -394,20 +421,25 @@ def main() -> int:
 
     records = {}
 
-    def check(name, shape, kernel, plain, reps, nbytes, nmul, graph=False):
-        """Hold `kernel` against `plain` (array equality) and time both
-        (`graph`: also the kernel's device time without host gaps); the
+    def check(name, shape, kernel, plain, reps, nbytes, nmul, graph=False,
+              affine=False):
+        """Hold `kernel` against `plain` (array equality; with `affine`, the
+        points after affine normalization, `affine_err`) and time both
+        (`graph`: also the kernel's device time without host gaps).  The
         first check of a kernel fills its record, later ones (other shapes
         of the same kernel) go under its `more_shapes`."""
         got, ms = event_ms(kernel, reps)
         want, plain_ms = event_ms(plain, 1)
-        err = max_abs_err(got, want)
+        err = (affine_err(got, want, K.fq_mul_plain) if affine
+               else max_abs_err(got, want))
         if err != 0:
             raise AssertionError(f"kernel {name} at {shape} disagrees with "
                                  f"its plain version: max |diff| = {err}")
         b_ms, b_by = bound(nbytes, nmul)
         at = {"shape": shape, "match": True, "max_abs_err": err, "ms": ms,
               "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        if affine:
+            at["compared"] = "after affine normalization"
         if graph:
             at["kernel_ms"] = graph_ms(kernel)
         if name in records:
@@ -419,7 +451,9 @@ def main() -> int:
                           f"{K.source_of(name)}.cu",
                 "replaces": REPLACES[name], **at, "library_ms": None,
                 "more_shapes": []}
-        log(f"kernel {name} at {shape}: equal to plain; {ms:.4f} ms "
+        log(f"kernel {name} at {shape}: equal to plain"
+            + (" after affine normalization" if affine else "")
+            + f"; {ms:.4f} ms "
             + (f"(kernel {at['kernel_ms']:.4f} ms) " if graph else "")
             + f"(plain {plain_ms:.2f} ms, bound {b_ms:.4f} ms by {b_by})")
         return got
@@ -518,6 +552,24 @@ def main() -> int:
     records["g1_fold_rows"]["row_kinds"] = rows_kinds
     with_ptxas("g1_fold_rows", "g1_fold_rows_kernel")
     del rows
+
+    # g1_horner on window sums taken from the fold's slots (projective
+    # representatives of real bucket sums, [24, n_rel, 64]) at both of
+    # HORNER_RELS.  Bound: 320 complete adds and 3
+    # products a relation, the [24, n_rel, 64] sums read and [3, 24, n_rel]
+    # written once.
+    def horner_check(shape, ws):
+        n_rel = ws[0].shape[1]
+        return check("g1_horner", shape, lambda: (K.g1_horner(*ws),),
+                     lambda: (K.g1_horner_plain(*ws),), 5,
+                     3 * 96 * 64 * n_rel + 3 * 48 * n_rel,
+                     n_rel * (320 * 12 + 3) * MUL32_PER_FQ_MUL)
+
+    for n_rel in HORNER_RELS:
+        horner_check(f"n_rel = {n_rel} (window sums from the 626k fold's "
+                     f"slots)", tuple(c[:, :n_rel * 64].reshape(24, n_rel, 64)
+                                      for c in acc))
+    with_ptxas("g1_horner", "g1_horner_kernel")
 
     partner = torch.clamp(torch.arange(s_pad, device=dev) + 1, max=s_pad - 1)
     nxt = PointsXYZ(*(c[:, partner] for c in acc))
@@ -960,6 +1012,11 @@ def main() -> int:
         if len(per) != timings["dispatches"]:
             raise AssertionError(f"{path}: {len(per)} marked dispatches, "
                                  f"{timings['dispatches']} timed")
+        horner = [st.get("horner", {}).get("launches") for st in per]
+        if any(h != {"g1_horner": 1} for h in horner) \
+                or by_path[path]["g1_horner"] != len(per):
+            raise AssertionError(f"{path}: the Horner stages launched "
+                                 f"{horner}, not one g1_horner a dispatch")
         stage_sum = {}
         for st in per:
             for k, v in st.items():
@@ -1005,8 +1062,10 @@ def main() -> int:
     # the table path's kernels at its own shapes: the fold over the table
     # residency of this batch (one IPA round: 4 relations a proof, n/2 + 1
     # columns), its repack alone (the same launch with a plan of no rows),
-    # Horner's g1_add over a same-msm round's 6 B relations, fq_mul at the
-    # table's prefix products' [24, 7N]
+    # g1_horner over a same-msm round's 6 B relations (window sums from that
+    # fold, its 4 B relations' and the first 2 B's again), g1_add at the
+    # table's multiples (d P + P), fq_mul at the table's prefix products'
+    # [24, 7N]
     combined = list(crs.vec_G) + list(crs.vec_H) + [
         crs.H, crs.G_t, crs.G_u, G1.infinity()]
     for i in insts:
@@ -1049,19 +1108,29 @@ def main() -> int:
         f"{turns['fold']} ms, its repack alone (a plan of no rows) "
         f"{turns['repack']} ms: {100 * repack_ms / fold_ms:.1f}% of the "
         f"fold, in every dispatch")
-    nh = 6 * PROVE_B
-    hp, hq = (PointsXYZ(*(c[:, o:o + nh].contiguous() for c in tacc))
-              for o in (0, nh))
-    check("g1_add", f"N = {nh} (Horner over a same-msm round's relations)",
-          lambda: K.g1_add(hp, hq), lambda: K.g1_add_plain(hp, hq), 100,
-          9 * 96 * nh, nh * 12 * MUL32_PER_FQ_MUL)
+    nh = HORNER_RELS[0]
+    hws = tuple(torch.cat([c, c[:, :(nh - n_rel) * 64]], dim=1)
+                .reshape(24, nh, 64) for c in tacc)
+    horner_check(f"n_rel = {nh} (a same-msm round at l = {PROVE_ELL}, B = "
+                 f"{PROVE_B}; window sums of the table fold)", hws)
+    one7 = FQ.const(1, (1,), dev)
+    hp, hq = (PointsXYZ(*(unpack_pairs(t[:, o:o + table.n]).int()
+                          for t in text[:2]),
+                        torch.where(text[2][o:o + table.n][None] != 0, one7,
+                                    0).contiguous())
+              for o in (table.n, 0))
+    check("g1_add", f"N = {table.n} (the table's multiples: 2P + P over "
+          f"its bases)", lambda: K.g1_add(hp, hq),
+          lambda: K.g1_add_plain(hp, hq), 20, 9 * 96 * table.n,
+          table.n * 12 * MUL32_PER_FQ_MUL)
     m7 = 7 * table.n
     za, zb = (unpack_pairs(t[:, table.n:table.n + m7]).int()
               for t in text[:2])
     check("fq_mul", f"[24, {m7}] (the table's prefix products)",
           lambda: (K.fq_mul(za, zb),), lambda: (K.fq_mul_plain(za, zb),), 20,
           3 * 96 * m7, m7 * MUL32_PER_FQ_MUL)
-    del table, text, tplan, tacc, hp, hq, za, zb, lt, ct, proofs, shuffles
+    del table, text, tplan, tacc, hws, hp, hq, za, zb, lt, ct, proofs
+    del shuffles
     del bad, insts, combined
 
     # (b) slot mode with the full-add fold, every proof's bytes checked
@@ -1107,12 +1176,14 @@ def main() -> int:
                    torch.where(gp.occ, sacc.y[:, gp.sel], one_m),
                    torch.where(gp.occ, sacc.z[:, gp.sel], 0))
     cb7, wg7 = sd.x.shape[1:]
-    check("g1_suffix_weighted_tree", f"Cb = {cb7}, WG = {wg7} (the c = 4 "
-          f"reduction of that round)",
-          lambda: sum(K.g1_suffix_weighted_tree(*sd), ()),
-          lambda: sum(K.g1_suffix_weighted_tree_plain(*sd), ()), 20,
-          *suffix_cost(cb7, wg7))
-    del sb, sext, gp, sacc, sd, lt, ct, insts, combined
+    swsum = check("g1_suffix_weighted_tree", f"Cb = {cb7}, WG = {wg7} (the "
+                  f"c = 4 reduction of that round)",
+                  lambda: sum(K.g1_suffix_weighted_tree(*sd), ()),
+                  lambda: sum(K.g1_suffix_weighted_tree_plain(*sd), ()), 20,
+                  *suffix_cost(cb7, wg7))[3:]
+    horner_check(f"n_rel = {sparams.n_rel} (that round's window sums)",
+                 tuple(c.reshape(24, sparams.n_rel, 64) for c in swsum))
+    del sb, sext, gp, sacc, sd, swsum, lt, ct, insts, combined
 
     # -- phase 8: the reference's other backends ------------------------------
     from curdleproofs_tpu_torch.ops import msm as ladders
@@ -1121,18 +1192,57 @@ def main() -> int:
     from curdleproofs_tpu_torch.ops.limbs import ints_to_bits
     from curdleproofs_tpu_torch.tools.msm_autotune import tune
 
-    # (a) the ladder kernel's three entries against its plain version at the
-    # grand product's widths (l = 124, 252) and at 2^16.  The bound counts
-    # the 32-bit multiplies the function needs on these scalars: below the
-    # top set bit (whose doubling and add act on infinity and are free) a
-    # doubling a step (6 products, 2 squarings) and an add (12 products) a
-    # set bit, and the fold's last add; the per-point entry computes every
-    # step's add and selects, so it does more than its bound counts.
+    # (a) the ladder kernel's three entries against the plain version after
+    # affine normalization at the grand product's widths (l = 124, 252) and
+    # at 2^16, the plain version run once an entry and width.  The wrapper
+    # gets the words on the host, as `ops/msm.py` passes them, so `ms`
+    # includes the GLV split on the host and the halves' upload;
+    # `kernel_ms` times `ladder_launch` alone on halves already on the
+    # card.  The bound counts the 32-bit multiplies the kernel's GLV chains
+    # need on these scalars (`glv_mul32`): two tables (P's and phi(P)'s: a
+    # doubling, 6 products and 2 squarings, and six adds of 12 products
+    # each), phi's product on P, in each half four doublings a window below
+    # the highest nonzero digit of either half and an add a nonzero digit
+    # but the first (which lands on infinity), the join where both halves
+    # hold one, and the fold's add.  The count for the 255-step ladder of
+    # the kernel's first design (`ladder_mul32`: a doubling a step below
+    # the top set bit, an add a set bit below it) stays beside it as
+    # `old_bound_ms`.
+    dbl32 = 6 * MUL32_PER_FQ_MUL + 2 * MUL32_PER_FQ_SQR
+    add32 = 12 * MUL32_PER_FQ_MUL
+
     def ladder_mul32(k: int) -> int:
         steps = max(k.bit_length() - 1, 0)
         adds = max(bin(k).count("1") - 1, 0)
-        return (steps * (6 * MUL32_PER_FQ_MUL + 2 * MUL32_PER_FQ_SQR)
-                + adds * 12 * MUL32_PER_FQ_MUL)
+        return steps * dbl32 + adds * add32
+
+    def glv_digits(halves) -> np.ndarray:
+        """The kernel's digits of `glv_split`'s halves ([2, 5] or [2, 5,
+        N]) on the host: [2, N, 33], digit j = b(4j-1) + b(4j) + 2 b(4j+1)
+        + 4 b(4j+2) - 8 b(4j+3) of the magnitude (b(-1) = 0), negated for
+        a negative half (only whether a digit is 0 counts here)."""
+        w = halves.cpu().numpy().view(np.uint32).reshape(2, K.GLV_HALF_WORDS,
+                                                         -1)
+        mag = w.copy()
+        mag[:, -1] &= 0x7FFFFFFF
+        le = np.ascontiguousarray(mag.transpose(0, 2, 1)).view(np.uint8)
+        bits = np.unpackbits(le, axis=2, bitorder="little").astype(np.int8)
+        b = np.zeros(bits.shape[:2] + (4 * K.GLV_WINDOWS + 1,), np.int8)
+        b[:, :, 1:] = bits[:, :, :4 * K.GLV_WINDOWS]       # b[i + 1] = b(i)
+        d = (b[:, :, 0:-1:4] + b[:, :, 1::4] + 2 * b[:, :, 2::4]
+             + 4 * b[:, :, 3::4] - 8 * b[:, :, 4::4])
+        return np.where((w[:, -1] >> 31)[:, :, None] != 0, -d, d)
+
+    def glv_mul32(halves) -> int:
+        nz = glv_digits(halves) != 0                        # [2, n, 33]
+        either = nz[0] | nz[1]
+        top = np.where(either.any(axis=1),
+                       K.GLV_WINDOWS - 1 - np.argmax(either[:, ::-1], axis=1),
+                       0)
+        adds = np.maximum(nz.sum(axis=2) - 1, 0).sum()
+        joins = (nz[0].any(axis=1) & nz[1].any(axis=1)).sum()
+        return int(nz.shape[1] * (2 * (dbl32 + 6 * add32) + MUL32_PER_FQ_MUL)
+                   + 2 * 4 * dbl32 * top.sum() + add32 * (adds + joins))
 
     for n in (124, 252, N_SMALL):
         pl = points_to_device(tiled(n, 17), dev)
@@ -1140,27 +1250,34 @@ def main() -> int:
         k, gamma = rnd.randrange(R), rnd.randrange(R)
         each = [rnd.randrange(R) for _ in range(n)]
         reps = 20 if n < N_SMALL else 3
-        for entry, words, lf, mul32 in (
-                ("batch_mul", ladders.scalar_words(
-                    ints_to_bits([k], ladders.NBITS)[0], dev), None,
-                 n * ladder_mul32(k)),
-                ("batch_mul_each", ladders.scalar_words(
-                    ints_to_bits(each, ladders.NBITS), dev, True), None,
-                 sum(ladder_mul32(s) for s in each)),
-                ("fold", ladders.scalar_words(
-                    ints_to_bits([gamma], ladders.NBITS)[0], dev), left,
-                 n * (ladder_mul32(gamma) + 12 * MUL32_PER_FQ_MUL))):
+        for entry, ks, lf in (("batch_mul", [k], None),
+                              ("batch_mul_each", each, None),
+                              ("fold", [gamma], left)):
+            bits = ints_to_bits(ks, ladders.NBITS)
+            per_point = len(ks) > 1
+            words = ladders.scalar_words(bits if per_point else bits[0],
+                                         "cpu", per_point)
+            halves = K.glv_split(words).to(dev)
+            scale = 1 if per_point else n
+            mul32 = scale * glv_mul32(halves) + (n * add32 if lf else 0)
+            old32 = scale * sum(ladder_mul32(s) for s in ks) \
+                + (n * add32 if lf else 0)
             nbytes = (6 if lf else 3) * 96 * n + 3 * 96 * n \
-                + 4 * words.numel()
+                + 4 * halves.numel()
             check("g1_ladder", f"{entry}, n = {n}",
                   lambda: K.g1_ladder(pl, words, lf),
-                  lambda: K.g1_ladder_plain(pl, words, lf), reps, nbytes,
-                  mul32)
-    for entry, prefix in (("g1_ladder_kernelILb1ELb0E", ""),
-                          ("g1_ladder_kernelILb0ELb0E", "each_"),
-                          ("g1_ladder_kernelILb1ELb1E", "fold_")):
-        with_ptxas("g1_ladder", entry, prefix)
-    del pl, left
+                  lambda: K.g1_ladder_plain(pl, words.to(dev), lf),
+                  reps, nbytes, mul32, affine=True)
+            at = records["g1_ladder"]
+            at = at["more_shapes"][-1] if at["more_shapes"] else at
+            at["kernel_ms"] = event_ms(lambda: K.ladder_launch(pl, halves, lf),
+                                       reps)[1]
+            at["old_bound_ms"] = bound(nbytes, old32)[0]
+            log(f"  g1_ladder {entry}, n = {n}: kernel "
+                f"{at['kernel_ms']:.4f} ms; old bound "
+                f"{at['old_bound_ms']:.4f} ms")
+    with_ptxas("g1_ladder", "g1_ladder_kernel")   # every entry
+    del pl, left, halves
 
     # (b) the all-device backend (CURDLEPROOFS_BACKEND=tpu): phase 4's run,
     # the ladder on the path

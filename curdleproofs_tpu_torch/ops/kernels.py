@@ -15,9 +15,13 @@ Kernels (sources in `../csrc/`, one shared object each):
 - `g1_sqrt`            y from x, compressed base ingest    (g1_sqrt.cu)
 - `g1_fold_rows`       fold of gathered [24, T, S] rows    (g1_fold_rows.cu)
 - `g1_add_rows`        batched add on [24, N] 3-tuples     (launches g1_add.cu)
-- `g1_ladder`          255-step double-and-add ladders:    (g1_ladder.cu)
+- `g1_ladder`          scalar multiplications by the GLV   (g1_ladder.cu)
+                       split and signed 4-bit windows:
                        k * P (one scalar), k_i * P_i and
                        L + k * R, one entry each
+- `g1_horner`          the grouped MSM's Horner step:      (g1_horner.cu)
+                       64 window sums a relation to its
+                       canonical point
 
 Every source runs on the carry-chain field core `fq_cc.cuh`; the two
 bucket folds share their repack, slot loop and launch (`g1_fold.cuh`) and
@@ -31,7 +35,10 @@ per wrapper, so a run can show its main path went through the kernels
 (`g1_add_rows` counts its own launches of g1_add.cu's entry; `g1_add_scan`
 counts under `g1_add`; the tree entry of g1_suffix_weighted.cu counts under
 `g1_suffix_weighted_tree`; the ladder's three entries count under
-`g1_ladder`).
+`g1_ladder`).  The ladder's outputs are other projective representatives
+than its plain version's (the reference's order of adds): they are equal
+after affine normalization; every other kernel's words are its plain
+version's.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` at first use, one
 process per source, all started together, with the generated
@@ -53,6 +60,7 @@ import re
 import threading
 import time
 
+import numpy as np
 import torch
 
 from . import aot
@@ -74,11 +82,12 @@ __all__ = ["ENTRIES", "KERNELS", "LAUNCHES", "SQRT_DIGITS", "constants_text",
            "suffix_uses_tree",
            "g1_sqrt", "g1_sqrt_plain", "g1_fold_rows", "g1_fold_rows_plain",
            "g1_add_rows", "g1_add_rows_plain", "g1_ladder",
-           "g1_ladder_plain", "source_of", "ptxas_usage"]
+           "g1_ladder_plain", "glv_split", "ladder_launch",
+           "g1_horner", "g1_horner_plain", "source_of", "ptxas_usage"]
 
 KERNELS = ("fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted",
            "g1_suffix_weighted_tree", "g1_fold_packed", "g1_sqrt",
-           "g1_fold_rows", "g1_add_rows", "g1_ladder")
+           "g1_fold_rows", "g1_add_rows", "g1_ladder", "g1_horner")
 # the wrappers that launch another kernel's source (and its C entry)
 _SHARES_SOURCE = {"g1_add_rows": "g1_add",
                   "g1_suffix_weighted_tree": "g1_suffix_weighted"}
@@ -95,7 +104,8 @@ ENTRIES = {"fq_mul": ("fq_mul",), "g1_add": ("g1_add", "g1_add_scan"),
                                   "g1_suffix_weighted_tree"),
            "g1_fold_packed": ("g1_fold_packed",), "g1_sqrt": ("g1_sqrt",),
            "g1_fold_rows": ("g1_fold_rows",),
-           "g1_ladder": ("g1_batch_mul", "g1_batch_mul_each", "g1_fold")}
+           "g1_ladder": ("g1_batch_mul", "g1_batch_mul_each", "g1_fold"),
+           "g1_horner": ("g1_horner",)}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -112,6 +122,7 @@ _ARGTYPES = {
     "g1_batch_mul": [_P] * 7 + [_I64, _P],
     "g1_batch_mul_each": [_P] * 7 + [_I64, _P],
     "g1_fold": [_P] * 10 + [_I64, _P],
+    "g1_horner": [_P] * 4 + [_I64, _P],
 }
 
 
@@ -641,35 +652,140 @@ def g1_ladder_plain(points: PointsXYZ, words: torch.Tensor,
     return PointsXYZ(*(c.int() for c in acc))
 
 
+# The GLV halves of the ladder kernel (csrc/g1_ladder.cuh): a scalar k
+# splits as k1 + k2 * lambda (mod r); a half is its magnitude in 5 words
+# with its sign in bit 31 of the last, read in the kernel as 33 Booth
+# digits.
+GLV_WINDOWS = 33
+GLV_HALF_WORDS = 5
+
+
+def glv_split(words: torch.Tensor) -> torch.Tensor:
+    """[8] or [8, N] int32 scalar words (scalars below r) -> the ladder
+    kernel's halves on the CPU, [2, 5] or [2, 5, N] int32: k = k1 + k2 *
+    lambda (mod r) (`host.glv`: the native split where the host runtime
+    has it, else `decompose` a scalar), |k_h| < 2^129 little-endian in
+    words 0-4, bit 31 of word 4 set where k_h < 0."""
+    from ..constants import R
+    from ..host import glv
+
+    cols = np.ascontiguousarray(
+        words.numpy().view(np.uint32).reshape(8, -1).T)
+    n = cols.shape[0]
+    ks = cols.tobytes()
+    if any(int.from_bytes(ks[32 * i:32 * i + 32], "little") >= R
+           for i in np.flatnonzero(cols[:, 7] >= R >> 224)):
+        raise ValueError("ladder scalars must lie below r")
+    native = glv.decompose_batch_raw(ks, n) if n else None
+    mags = np.zeros((2, n, 4 * GLV_HALF_WORDS), np.uint8)
+    if native is not None:
+        for h in range(2):
+            mags[h, :, :16] = np.frombuffer(native[2 * h], np.uint8) \
+                .reshape(n, 16)
+        negs = [np.frombuffer(native[2 * h + 1], np.uint8) != 0
+                for h in range(2)]
+    else:
+        halves = [glv.decompose(int.from_bytes(ks[32 * i:32 * i + 32],
+                                               "little")) for i in range(n)]
+        for h in range(2):
+            mags[h] = np.frombuffer(b"".join(
+                abs(v[h]).to_bytes(4 * GLV_HALF_WORDS, "little")
+                for v in halves), np.uint8).reshape(n, -1)
+        negs = [np.array([v[h] < 0 for v in halves], bool) for h in range(2)]
+    out = mags.view("<u4").copy()                          # [2, n, 5]
+    if (out[:, :, -1] >> 1).any():
+        raise AssertionError("a GLV half has 129 bits or more")
+    for h in range(2):
+        out[h, negs[h], -1] |= np.uint32(1 << 31)
+    out = np.ascontiguousarray(out.transpose(0, 2, 1)).view(np.int32)
+    return torch.from_numpy(out if words.ndim == 2 else out[:, :, 0].copy())
+
+
 def g1_ladder(points: PointsXYZ, words: torch.Tensor,
               left: PointsXYZ | None = None) -> PointsXYZ:
-    """`g1_ladder_plain` in one launch: entry `cp_g1_batch_mul` for [8]
-    words, `cp_g1_batch_mul_each` for [8, N], `cp_g1_fold` for [8] words
-    with `left`."""
-    ins = (*points, words, *(left or ()))
-    if _on_cpu(*ins):
+    """`g1_ladder_plain`'s points in one launch: entry `cp_g1_batch_mul`
+    for [8] words, `cp_g1_batch_mul_each` for [8, N], `cp_g1_fold` for [8]
+    words with `left`.  The words lie on the CPU: the kernel takes the
+    scalars as `glv_split`'s halves, made on the host.  Its outputs are
+    other projective representatives than the plain version's."""
+    pts = (*points, *(left or ()))
+    if _on_cpu(*pts):
         return g1_ladder_plain(points, words, left)
     n = points.x.shape[1] if points.x.ndim == 2 else -1
     uniform = words.shape == (8,)
-    if n < 0 or any(c.shape != (L, n) for c in (*points, *(left or ()))) \
+    if n < 0 or any(c.shape != (L, n) for c in pts) \
             or not (uniform or words.shape == (8, n)) \
+            or words.dtype != torch.int32 \
+            or words.device != torch.device("cpu") \
             or (left is not None and not uniform):
         raise ValueError("the ladder takes [24, N] limb tensors, [8] or "
-                         "[8, N] scalar words, and one scalar for a fold")
-    ins = [t.contiguous() for t in ins]
-    outs = [torch.empty((L, n), dtype=torch.int32, device=words.device)
-            for _ in range(3)]
+                         "[8, N] int32 scalar words on the CPU, and one "
+                         "scalar for a fold")
     if not n:
-        return PointsXYZ(*outs)
-    ptrs = [t.data_ptr() for t in ins]
-    if left is not None:   # left, then right and the words, as cp_g1_fold
-        ptrs = ptrs[4:] + ptrs[:4]
+        return PointsXYZ(*(torch.empty((L, 0), dtype=torch.int32,
+                                       device=points.x.device)
+                           for _ in range(3)))
+    return ladder_launch(points, glv_split(words).to(points.x.device), left)
+
+
+def ladder_launch(points: PointsXYZ, halves: torch.Tensor,
+                  left: PointsXYZ | None = None) -> PointsXYZ:
+    """The launch of `g1_ladder` on `glv_split`'s halves already on the
+    points' card ([2, 5]: one scalar, with `left` the fold; [2, 5, N]: one
+    a point), N >= 1; a caller that times the kernel alone calls it."""
+    n = points.x.shape[1]
+    ins = [t.contiguous() for t in (*points, *(left or ()))]
+    outs = [torch.empty((L, n), dtype=torch.int32, device=points.x.device)
+            for _ in range(3)]
+    ptrs = [t.data_ptr() for t in ins] + [halves.contiguous().data_ptr()]
+    if left is not None:   # left, then right and the halves, as cp_g1_fold
+        ptrs = ptrs[3:6] + ptrs[:3] + ptrs[6:]
         entry = "g1_fold"
     else:
-        entry = "g1_batch_mul" if uniform else "g1_batch_mul_each"
-    _launch("g1_ladder", words.device, *ptrs,
+        entry = "g1_batch_mul" if halves.ndim == 2 else "g1_batch_mul_each"
+    _launch("g1_ladder", points.x.device, *ptrs,
             *(o.data_ptr() for o in outs), n, entry=entry)
     return PointsXYZ(*outs)
+
+
+# --------------------------------------------------------------------------
+# g1_horner
+# --------------------------------------------------------------------------
+
+HORNER_WINDOWS = 64   # the grouped MSM's c = 4 windows
+HORNER_BITS = 4
+
+
+def g1_horner_plain(x, y, z) -> torch.Tensor:
+    """[24, n_rel, 64] Montgomery window sums -> [3, 24, n_rel] canonical
+    points: acc = ((ws[63] * 16 + ws[62]) * 16 + ...) + ws[0], from acc =
+    infinity, each window four complete adds of acc to itself and the add
+    of its sum (the reference's `horner_device`, operation for operation),
+    then each coordinate times the plain integer 1 (leave-Montgomery)."""
+    acc = g1_infinity64((x.shape[1],), x.device)
+    for w in range(HORNER_WINDOWS - 1, -1, -1):
+        for _ in range(HORNER_BITS):
+            acc = g1_add64(acc, acc)
+        acc = g1_add64(acc, PointsXYZ(x[:, :, w].long(), y[:, :, w].long(),
+                                      z[:, :, w].long()))
+    one = FQ.plain_const(1, (1,), x.device).long()
+    return torch.stack([FQ.mul64(c, one) for c in acc]).int()
+
+
+def g1_horner(x, y, z) -> torch.Tensor:
+    """`g1_horner_plain` in one launch."""
+    if _on_cpu(x, y, z):
+        return g1_horner_plain(x, y, z)
+    if x.ndim != 3 or x.shape[0] != L or x.shape[2] != HORNER_WINDOWS \
+            or y.shape != x.shape or z.shape != x.shape:
+        raise ValueError("Horner takes three [24, n_rel, 64] limb tensors")
+    x, y, z = (t.contiguous() for t in (x, y, z))
+    n_rel = x.shape[1]
+    out = torch.empty((3, L, n_rel), dtype=torch.int32, device=x.device)
+    if n_rel:
+        _launch("g1_horner", x.device, x.data_ptr(), y.data_ptr(),
+                z.data_ptr(), out.data_ptr(), n_rel)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -693,6 +809,9 @@ def warm_entries(device, times: dict | None = None) -> None:
     def z(*shape):
         return torch.zeros(shape, dtype=torch.int32, device=dev)
 
+    def words(*shape):   # the ladder's scalar words stay on the host
+        return torch.zeros(shape, dtype=torch.int32)
+
     p = PointsXYZ(z(L, 1), z(L, 1), z(L, 1))
     ext = (z(L // 2, 3), z(L // 2, 3), z(3))
     calls = [
@@ -713,9 +832,12 @@ def warm_entries(device, times: dict | None = None) -> None:
         ("g1_sqrt", lambda: g1_sqrt(z(L // 2, 1))),
         ("g1_fold_rows", lambda: g1_fold_rows(z(L, 1, 1), z(L, 1, 1),
                                               z(L, 1, 1))),
-        ("g1_batch_mul", lambda: g1_ladder(p, z(8))),
-        ("g1_batch_mul_each", lambda: g1_ladder(p, z(8, 1))),
-        ("g1_fold", lambda: g1_ladder(p, z(8), p)),
+        ("g1_batch_mul", lambda: g1_ladder(p, words(8))),
+        ("g1_batch_mul_each", lambda: g1_ladder(p, words(8, 1))),
+        ("g1_fold", lambda: g1_ladder(p, words(8), p)),
+        ("g1_horner", lambda: g1_horner(z(L, 1, HORNER_WINDOWS),
+                                        z(L, 1, HORNER_WINDOWS),
+                                        z(L, 1, HORNER_WINDOWS))),
     ]
     for entry, call in calls:
         if times is None:

@@ -9,12 +9,16 @@ Layout: limb-major [24, N] (see ops/field.py).  Scalars arrive as in the
 reference, bit arrays from `ints_to_bits(s % r, NBITS)` (LSB first): [NBITS]
 for one scalar, [N, NBITS] for one a point, as a numpy array or a tensor.
 Each wrapper packs them on the host into eight 32-bit words a scalar
-(`scalar_words`, 32 bytes a scalar to upload instead of 255 bits in int32
-lanes) on the points' device and runs the ladder there: on the card one
-launch of the `g1_ladder` kernel (ops/kernels.py, csrc/g1_ladder.cu), on
-the CPU its plain version.  The `_plain` functions are the reference's
-`lax.scan`s as Python loops over the int64 doubling, complete add and
-select (`kernels.g1_ladder_plain`), on any device.
+(`scalar_words`) and runs the ladder on the points' device: on the card
+one launch of the `g1_ladder` kernel (ops/kernels.py, csrc/g1_ladder.cu),
+whose wrapper splits each scalar on the host (GLV) and uploads its two
+signed halves, 40 bytes a scalar; on the CPU its plain version.  The
+kernel adds in another order than the reference, so its points are other
+projective representatives of the same points (equal after affine
+normalization).
+The `_plain` functions are the reference's `lax.scan`s as Python loops
+over the int64 doubling, complete add and select
+(`kernels.g1_ladder_plain`), on any device.
 """
 
 from __future__ import annotations
@@ -64,15 +68,18 @@ def fold_plain(left: PointsXYZ, right: PointsXYZ, bits) -> PointsXYZ:
 
 
 def batch_mul(points: PointsXYZ, bits) -> PointsXYZ:
-    """`batch_mul_plain`; one `g1_ladder` launch for points on the card."""
-    return g1_ladder(points, scalar_words(bits, points.x.device))
+    """`batch_mul_plain`'s points; one `g1_ladder` launch for points on the
+    card (the words stay on the host, where the kernel's wrapper splits
+    them)."""
+    return g1_ladder(points, scalar_words(bits, "cpu"))
 
 
 def batch_mul_each(points: PointsXYZ, bits) -> PointsXYZ:
-    """`batch_mul_each_plain`; one `g1_ladder` launch on the card."""
-    return g1_ladder(points, scalar_words(bits, points.x.device, True))
+    """`batch_mul_each_plain`'s points; one `g1_ladder` launch on the
+    card."""
+    return g1_ladder(points, scalar_words(bits, "cpu", True))
 
 
 def fold(left: PointsXYZ, right: PointsXYZ, bits) -> PointsXYZ:
-    """`fold_plain`; one `g1_ladder` launch on the card."""
-    return g1_ladder(right, scalar_words(bits, right.x.device), left)
+    """`fold_plain`'s points; one `g1_ladder` launch on the card."""
+    return g1_ladder(right, scalar_words(bits, "cpu"), left)

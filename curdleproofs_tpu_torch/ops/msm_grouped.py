@@ -10,9 +10,9 @@ thousands of relations, and downloads only the finished points.
 Differences from the single-MSM pipeline (`ops/msm_device.py`):
 
 - Output axis: each relation (output point) owns its own window rows and
-  bucket space; window sums reduce to final points ON DEVICE with a shared
-  Horner ladder (64 x [4 doublings + add] over all relations at once, each
-  a `g1_add` launch; a doubling is the complete add of a point to itself,
+  bucket space; window sums reduce to final points ON DEVICE with a Horner
+  ladder (64 x [4 doublings + add], one thread a relation of one
+  `g1_horner` launch; a doubling is the complete add of a point to itself,
   as in the reference), so the download is [3, 24, n_rel] canonical points.
 - c = 4 windows (W = 64, 8 buckets).  64*4 = 256 > 255 bits, so the top
   window is always 0..7 and absorbs the signed-recode carry.
@@ -27,7 +27,7 @@ Two modes, as in the reference:
   ([P | -P | inf]): slot plan, bucket fold (`g1_fold_madd`, or
   `g1_fold_packed` with `madd=False`), slot merge (`g1_add_scan` rounds),
   bucket reduction (`g1_suffix_weighted`, which routes n_rel <= 128 to its
-  tree entry on the card), Horner;
+  tree entry on the card), Horner (`g1_horner`);
 - table mode (`grouped_msm_table`): dense relations over a
   `DeviceBasesTable`, the multiples d*P for d = 1..8 precomputed once per
   residency, so every window sum is one streaming fold of `width` table
@@ -55,12 +55,14 @@ import torch
 from ..constants import Q
 from ..host.g1 import G1
 from .field import FQ, pack_pairs, unpack_pairs
-from .g1_ops import PointsXYZ, g1_add, g1_infinity
-from .kernels import g1_fold_madd, g1_fold_packed, g1_suffix_weighted
+from .g1_ops import PointsXYZ, g1_add
+from .kernels import (
+    g1_fold_madd, g1_fold_packed, g1_horner, g1_suffix_weighted,
+)
 from .limbs import FQ_LIMBS as L
 from .limbs import int_to_limbs
 from .msm_device import (
-    DeviceBases, _decode_canonical, _leave_montgomery, _round_up,
+    DeviceBases, _decode_canonical, _round_up,
     _scalar_bytes, _suffix_scan, _window_sums_to_host, use_madd,
 )
 
@@ -231,18 +233,12 @@ def grouped_core(ext_px, ext_py, ext_zb, digits, col_pts, *,
 
 def horner_device(wsums: PointsXYZ) -> torch.Tensor:
     """[24, n_rel, W] Montgomery window sums -> [3, 24, n_rel] CANONICAL
-    projective points: acc = ((ws[W-1] * 16 + ws[W-2]) * 16 + ...) on the
-    device, 64 iterations of 4 doublings + 1 add over all relations at
-    once, each one `g1_add` launch (a doubling adds acc to itself, as the
-    reference does, so the representatives are the reference's); then one
-    leave-Montgomery product."""
-    n_rel = wsums.x.shape[1]
-    acc = g1_infinity((n_rel,), wsums.x.device)
-    for w in range(_W):
-        for _ in range(_C):
-            acc = g1_add(acc, acc)
-        acc = g1_add(acc, PointsXYZ(*(c[:, :, _W - 1 - w] for c in wsums)))
-    return _leave_montgomery(acc)
+    projective points: acc = ((ws[W-1] * 16 + ws[W-2]) * 16 + ...), 64
+    iterations of 4 doublings + 1 add, each relation's chain in one thread
+    of one `g1_horner` launch on the card (a doubling adds acc to itself,
+    as the reference does, so the representatives are the reference's),
+    then leave-Montgomery; on the CPU its plain version."""
+    return g1_horner(*wsums)
 
 
 def _digits(limbs: torch.Tensor, n_rel: int, width: int) -> torch.Tensor:

@@ -10,8 +10,9 @@ prover's at B = 256, l = 252: a pool of 512 random points, StdRng 3,
 tiled), random columns and scalars (numpy, seed 7), in both of the port's
 modes:
   slot   (`grouped_slot_run`): upload, recode, plan, fold, merge, suffix,
-         and Horner apart (`horner_device`: 64 x (4 doublings + 1 add),
-         then leave-Montgomery);
+         and Horner apart (`horner_device`: 64 x (4 doublings + 1 add)
+         and leave-Montgomery, one thread a relation of one `g1_horner`
+         launch);
   table  (`grouped_table_run`, over `DeviceBasesTable`, whose build is
          timed once): upload, recode, plan, fold, Horner.
 Each stage's device ms (CUDA events after an explicit synchronize; the

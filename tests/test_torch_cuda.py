@@ -579,9 +579,9 @@ def test_grouped_slot_on_card(madd):
     kernels.reset_launches()
     pts = mg.grouped_msm(card, rels, madd=madd)
     assert {k for k, v in kernels.LAUNCHES.items() if v} == {
-        "fq_mul", "g1_add", "g1_suffix_weighted_tree",
+        "g1_add", "g1_suffix_weighted_tree", "g1_horner",
         "g1_fold_madd" if madd else "g1_fold_packed"}
-    assert kernels.LAUNCHES["fq_mul"] == 1       # leave-Montgomery
+    assert kernels.LAUNCHES["g1_horner"] == 1    # Horner, leave-Montgomery
     host = [HostBackend().msm([pool[c] for c in cc], ss) for cc, ss in rels]
     assert pts == host == mg.grouped_msm(cpu, rels, madd=madd)
 
@@ -613,15 +613,31 @@ def test_grouped_table_on_card(madd):
                                          madd=madd).cpu())
         if t is card:
             assert {k for k, v in kernels.LAUNCHES.items() if v} == {
-                "fq_mul", "g1_add", "g1_fold_madd" if madd
-                else "g1_fold_packed"}
-            assert kernels.LAUNCHES["g1_add"] == 64 * 5   # Horner
+                "g1_horner", "g1_fold_madd" if madd else "g1_fold_packed"}
+            assert kernels.LAUNCHES["g1_horner"] == 1     # Horner
     assert torch.equal(outs[0], outs[1])
     padded = pool[:60] + [G1.infinity()] * 4
     host = [HostBackend().msm([padded[c] for c in cc], ss) for cc, ss in rels]
     from curdleproofs_tpu_torch.ops.msm_grouped import decode_points
 
     assert decode_points(outs[0].numpy())[: len(rels)] == host
+
+
+@pytest.mark.parametrize("n_rel", [8, 40, 100])
+def test_horner_kernel_matches_plain(n_rel):
+    """g1_horner at ragged widths (a warp, or a block, partly past the last
+    relation), array-equal to its plain version, on window sums with
+    points at infinity (0 : 1 : 0) among them."""
+    dev = _card()
+    ps, qs = _pairs(n_rel * 64)
+    s = kernels.g1_add_plain(points_to_device(ps, "cpu"),
+                             points_to_device(qs, "cpu"))   # general z
+    ws = PointsXYZ(*(c.reshape(FQ_LIMBS, n_rel, 64) for c in s))
+    want = kernels.g1_horner_plain(*ws)
+    before = kernels.LAUNCHES["g1_horner"]
+    got = kernels.g1_horner(*(c.to(dev) for c in ws))
+    assert kernels.LAUNCHES["g1_horner"] == before + 1
+    assert torch.equal(got.cpu(), want)
 
 
 @pytest.mark.parametrize("table", ["1", "0"])
@@ -697,10 +713,11 @@ def _ladder_points(n: int, seed: int):
 
 @pytest.mark.parametrize("n", [8, 124])
 def test_ladder_kernel_entries_match_plain(n):
-    """The three entries of g1_ladder.cu against `g1_ladder_plain`, array
-    equality, on inputs near q and infinity: one scalar (0, 1, 2, r - 1 and
-    a random one at n = 8), one a point, and the fold; the results against
-    the host's multiples."""
+    """The three entries of g1_ladder.cu against
+    `g1_ladder_plain` after affine normalization (the GLV chain adds in
+    another order), on inputs near q and infinity: one scalar (0, 1, 2,
+    r - 1, lambda and a random one at n = 8), one a point, and the fold;
+    the results against the host's multiples."""
     dev = _card()
     from curdleproofs_tpu_torch.ops import msm
     from curdleproofs_tpu_torch.ops.limbs import ints_to_bits
@@ -708,7 +725,10 @@ def test_ladder_kernel_entries_match_plain(n):
     pts, p = _ladder_points(n, 30 + n)
     left_pts, left = _ladder_points(n, 31 + n)
     on = (lambda v: PointsXYZ(*(c.to(dev) for c in v)))
-    ks = [0, 1, 2, R - 1, rnd.randrange(R)] if n == 8 else [rnd.randrange(R)]
+    from curdleproofs_tpu_torch.host.glv import LAMBDA
+
+    ks = [0, 1, 2, R - 1, LAMBDA, rnd.randrange(R)] if n == 8 \
+        else [rnd.randrange(R)]
     each = [0, 1, 2, R - 1] + [rnd.randrange(R) for _ in range(n - 4)]
     cases = [(k, msm.scalar_words(ints_to_bits([k], msm.NBITS)[0], "cpu"),
               None) for k in ks]
@@ -719,12 +739,11 @@ def test_ladder_kernel_entries_match_plain(n):
         ints_to_bits([gamma], msm.NBITS)[0], "cpu"), left))
     for k, words, lf in cases:
         before = kernels.LAUNCHES["g1_ladder"]
-        got = kernels.g1_ladder(on(p), words.to(dev),
-                                None if lf is None else on(lf))
+        got = kernels.g1_ladder(on(p), words, None if lf is None else on(lf))
         assert kernels.LAUNCHES["g1_ladder"] == before + 1
         got = PointsXYZ(*(c.cpu() for c in got))
         want = kernels.g1_ladder_plain(p, words, lf)
-        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        assert points_from_device(got) == points_from_device(want)
         ks_ = k if isinstance(k, list) else [k] * n
         host = [q.mul(s) for q, s in zip(pts, ks_)]
         if lf is not None:
@@ -891,7 +910,7 @@ def test_batch_verify_on_a_logical_grid():
 WARM_LAUNCHES = {"fq_mul": 1, "g1_add": 2, "g1_fold_madd": 1,
                  "g1_fold_packed": 1, "g1_suffix_weighted": 1,
                  "g1_suffix_weighted_tree": 2, "g1_sqrt": 1,
-                 "g1_fold_rows": 1, "g1_ladder": 3}
+                 "g1_fold_rows": 1, "g1_ladder": 3, "g1_horner": 1}
 
 
 def test_store_hit_launches_every_entry(monkeypatch):
@@ -912,7 +931,7 @@ def test_store_hit_launches_every_entry(monkeypatch):
     torch.cuda.synchronize()
     assert apart == WARM_LAUNCHES
     assert kernels.LAUNCHES == before
-    assert len(times) == 13 and all(ms > 0 for ms in times.values())
+    assert len(times) == 14 and all(ms > 0 for ms in times.values())
     for s in aot.SOURCES:
         rec = aot.maybe_load(s)
         assert rec is not None and rec["built"] is False, s

@@ -11,19 +11,29 @@ and the all-device backend on the CPU against the host backend.
   outputs must be reduced below q before the complete add takes them; the
   per-point scalars are 0, 1, 2, r - 1 and random ones.
 - The same outputs against host `G1.mul` (affine equality).
-- `csrc/g1_ladder.cuh`'s `cc::ladder_lane`, the kernel's lane, built with
-  g++ over `fq_cc.cuh`'s C twin: each entry array-equal to its plain
-  version, and the uniform entry (which skips the steps above the top bit
-  and the adds of zero bits) equal, lane by lane, to the per-point ladder
-  for each of those scalars; `cc::g1_double` against `g1_double64`, and
-  that against the port's `g1_double`.
+- `csrc/g1_ladder.cuh`'s `cc::glv_lane`, the kernel's lane (the GLV split
+  into two halves of signed 4-bit windows, a chain a half joined by one
+  add, as the kernel's two threads a point), built with g++ over
+  `fq_cc.cuh`'s C twin: each entry equal to its plain version after
+  affine normalization (the chain adds in another order) and to the
+  host's multiples; the uniform entries (which skip the windows above the
+  top digit and the adds of zero digits) equal, lane by lane, to the
+  per-point entry on each of those scalars; 0, 1, 2, r - 1, lambda,
+  r - lambda, multiples of lambda and scalars whose halves are 0 or
+  negative against the host; `glv_split` and the kernel's Booth digits
+  of its halves round-tripping k1 + k2 lambda = k (mod r), through the
+  native split and the Python one; the header's beta
+  equal to `host.glv`'s; `cc::g1_double` against `g1_double64`, and that
+  against the port's `g1_double`.
 - `DeviceBackend(device="cpu")` against `HostBackend` for `batch_mul`,
   `batch_mul_each` and `fold_points` at n = 8 (the ladders), and below
   `MIN_DEVICE_SIZE` (the host).
 
-Tolerance: exact everywhere (canonical residues)."""
+Tolerance: exact (canonical residues), the GLV lanes after affine
+normalization."""
 
 import ctypes
+import random
 import shutil
 import subprocess
 
@@ -36,7 +46,9 @@ from curdleproofs_tpu.ops import g1_ops as jg
 from curdleproofs_tpu.ops import msm as jmsm
 from curdleproofs_tpu_torch.backend import HostBackend
 from curdleproofs_tpu_torch.constants import Q, R
+from curdleproofs_tpu_torch.host import glv
 from curdleproofs_tpu_torch.host.g1 import G1
+from curdleproofs_tpu_torch.host.glv import BETA, LAMBDA, decompose
 from curdleproofs_tpu_torch.host.rng import StdRng
 from curdleproofs_tpu_torch.ops import msm
 from curdleproofs_tpu_torch.ops.backend import DeviceBackend
@@ -44,6 +56,7 @@ from curdleproofs_tpu_torch.ops.field import FQ
 from curdleproofs_tpu_torch.ops.g1_ops import (
     PointsXYZ, g1_double, g1_double64, points_from_device,
 )
+from curdleproofs_tpu_torch.ops import kernels as K
 from curdleproofs_tpu_torch.ops.kernels import CSRC
 from curdleproofs_tpu_torch.ops.limbs import FQ_LIMBS, ints_to_bits, ints_to_limbs
 
@@ -123,19 +136,18 @@ _HARNESS = r"""
 #include "fq_cc.cuh"
 #include "g1_ladder.cuh"
 
-// the kernel's lanes in turn: p, left [3, 24, n], out [3, 24, n]
-extern "C" void cc_ladder(int entry, const uint32_t* p, const uint32_t* words,
-                          const uint32_t* left, long n, uint32_t* out) {
+// the kernel's lanes in turn, both halves in this thread (each half's
+// chain, then the join, as the kernel's two threads): p, left [3, 24, n],
+// halves [2, 5] or [2, 5, n], out [3, 24, n]
+extern "C" void cc_ladder(int entry, const uint32_t* p,
+                          const uint32_t* halves, const uint32_t* left,
+                          long n, uint32_t* out) {
   const uint32_t *x = p, *y = p + 24 * n, *z = p + 48 * n;
   const uint32_t *lx = left, *ly = left + 24 * n, *lz = left + 48 * n;
+  uint32_t tab[cc::GLV_TABLE * cc::POINT_WORDS];
   for (long lane = 0; lane < n; ++lane) {
-    cc::Proj r =
-        entry == 0 ? cc::ladder_lane<true, false>(x, y, z, words, lx, ly, lz,
-                                                 n, lane)
-      : entry == 1 ? cc::ladder_lane<false, false>(x, y, z, words, lx, ly, lz,
-                                                  n, lane)
-                   : cc::ladder_lane<true, true>(x, y, z, words, lx, ly, lz,
-                                                n, lane);
+    const cc::Proj r = cc::glv_lane(entry != 1, entry == 2, x, y, z, halves,
+                                    lx, ly, lz, n, lane, tab);
     cc::store16(out, n, lane, r.x);
     cc::store16(out + 24 * n, n, lane, r.y);
     cc::store16(out + 48 * n, n, lane, r.z);
@@ -151,6 +163,10 @@ extern "C" void cc_double(const uint32_t* p, long n, uint32_t* out) {
     cc::store16(out + 24 * n, n, lane, r.y);
     cc::store16(out + 48 * n, n, lane, r.z);
   }
+}
+
+extern "C" void cc_beta(uint32_t* out) {
+  for (int i = 0; i < cc::NL; ++i) out[i] = cc::beta_limb(i);
 }
 """
 
@@ -172,6 +188,7 @@ def lib(tmp_path_factory):
     p = ctypes.c_void_p
     h.cc_ladder.argtypes = [ctypes.c_int, p, p, p, ctypes.c_long, p]
     h.cc_double.argtypes = [p, ctypes.c_long, p]
+    h.cc_beta.argtypes = [p]
     return h
 
 
@@ -179,13 +196,23 @@ def _ptr(a: np.ndarray):
     return a.ctypes.data_as(ctypes.c_void_p)
 
 
-def _c_ladder(lib, entry: int, case, words: np.ndarray) -> np.ndarray:
+def _c_ladder(lib, entry: int, case, words) -> np.ndarray:
+    """The kernel's lane over the case's points for the scalar words (as
+    the wrapper takes them), through `glv_split` as the wrapper packs
+    them."""
     p, left = (np.ascontiguousarray(case["limbs"][s]) for s in
                ("right", "left"))
-    w = np.ascontiguousarray(words.view(np.uint32))
+    halves = np.ascontiguousarray(
+        K.glv_split(torch.from_numpy(np.asarray(words))).numpy()
+        .view(np.uint32))
     out = np.zeros_like(p)
-    lib.cc_ladder(entry, _ptr(p), _ptr(w), _ptr(left), N, _ptr(out))
+    lib.cc_ladder(entry, _ptr(p), _ptr(halves), _ptr(left), N, _ptr(out))
     return out
+
+
+def _points(limbs: np.ndarray) -> list[G1]:
+    return points_from_device(PointsXYZ(*(torch.from_numpy(c.view(np.int32))
+                                          for c in limbs)))
 
 
 def _words(bits, per_point=False) -> np.ndarray:
@@ -194,22 +221,127 @@ def _words(bits, per_point=False) -> np.ndarray:
 
 @pytest.mark.parametrize("func", FUNCS)
 def test_kernel_lane_equals_plain(lib, case, func):
+    """Each entry's lane equals its plain version after affine
+    normalization (the GLV chain adds in another order, so the projective
+    representatives differ) and the host's multiples."""
     entry = FUNCS.index(func)
+    want = points_from_device(case["plain"][func])
+    assert want == case["want"][func]
     got = _c_ladder(lib, entry, case, _words(case["bits"][func], entry == 1))
-    for j, t in enumerate(case["plain"][func]):
-        assert np.array_equal(got[j], t.numpy().view(np.uint32))
+    assert _points(got) == want
 
 
 def test_uniform_lane_skips_give_the_per_point_words(lib, case):
-    """The uniform entry skips the steps above the top bit and the adds of
-    zero bits: for each per-point scalar (0, 1, 2, r - 1, random), its
-    lane's words equal the per-point ladder's."""
-    each = case["plain"]["batch_mul_each"]
+    """The uniform entries skip the windows above the top nonzero digit and
+    the adds of zero digits: for each per-point scalar (0, 1, 2, r - 1,
+    random), its lane's words equal the per-point entry's."""
+    each = _c_ladder(lib, 1, case, _words(case["bits"]["batch_mul_each"],
+                                          True))
     for j, s in enumerate(case["ks"]):
-        got = _c_ladder(lib, 0, case,
-                        _words(ints_to_bits([s], msm.NBITS)[0]))
-        for c, t in zip(got, each):
-            assert np.array_equal(c[:, j], t[:, j].numpy().view(np.uint32))
+        got = _c_ladder(lib, 0, case, _words(ints_to_bits([s], msm.NBITS)[0]))
+        assert np.array_equal(got[:, :, j], each[:, :, j])
+
+
+def _special_scalars() -> list[int]:
+    """0, 1, 2, r - 1, lambda and r - lambda (one half 0, the other +-1),
+    scalars whose k1 or k2 is 0 or negative, both halves negative, and a
+    random one."""
+    rnd = random.Random(23)
+    ks = [0, 1, 2, R - 1, LAMBDA, R - LAMBDA, 5 * LAMBDA % R,
+          (R - 7) * LAMBDA % R]
+    want = {(True, True), (True, False), (False, True)}   # k1 < 0, k2 < 0
+    while want:
+        k = rnd.randrange(R)
+        k1, k2 = decompose(k)
+        if (k1 < 0, k2 < 0) in want:
+            want.discard((k1 < 0, k2 < 0))
+            ks.append(k)
+    return ks + [rnd.randrange(R)]
+
+
+@pytest.mark.parametrize("func", FUNCS)
+def test_kernel_lane_special_scalars(lib, case, func):
+    """Each entry's lane on the special scalars against the host's
+    multiples (affine equality): one scalar for all lanes (points with
+    infinity and near-q representatives), one a lane, and the fold."""
+    pts, left = case["pts"], case["left"]
+    ks = _special_scalars()
+    if func == "batch_mul_each":
+        for at in range(0, len(ks), N):
+            each = (ks[at:at + N] * N)[:N]
+            got = _c_ladder(lib, 1, case,
+                            _words(ints_to_bits(each, msm.NBITS), True))
+            assert _points(got) == [p.mul(s) for p, s in zip(pts, each)]
+        return
+    for k in ks:
+        got = _points(_c_ladder(lib, FUNCS.index(func), case,
+                                _words(ints_to_bits([k], msm.NBITS)[0])))
+        if func == "batch_mul":
+            assert got == [p.mul(k) for p in pts]
+        else:
+            assert got == [a.add(p.mul(k)) for a, p in zip(left, pts)]
+
+
+def _glv_digits(halves: torch.Tensor) -> np.ndarray:
+    """The kernel's digits of `glv_split`'s halves ([2, 5] or [2, 5, N]),
+    read on the host as `cc::Digits` reads them: [2, N, 33] int8, digit
+    j = b(4j-1) + b(4j) + 2 b(4j+1) + 4 b(4j+2) - 8 b(4j+3) of the
+    magnitude (b(-1) = 0; Booth's rule, in [-8, 8]), negated for a
+    negative half, so k_h = sum_j d_j 16^j."""
+    w = halves.numpy().view(np.uint32).reshape(2, K.GLV_HALF_WORDS, -1)
+    neg = (w[:, -1] >> 31).astype(bool)                    # [2, N]
+    mag = w.copy()
+    mag[:, -1] &= 0x7FFFFFFF
+    le = np.ascontiguousarray(mag.transpose(0, 2, 1)).view(np.uint8)
+    bits = np.unpackbits(le, axis=2, bitorder="little").astype(np.int8)
+    b = np.zeros(bits.shape[:2] + (4 * K.GLV_WINDOWS + 1,), np.int8)
+    b[:, :, 1:] = bits[:, :, :4 * K.GLV_WINDOWS]           # b[i + 1] = b(i)
+    d = (b[:, :, 0:-1:4] + b[:, :, 1::4] + 2 * b[:, :, 2::4]
+         + 4 * b[:, :, 3::4] - 8 * b[:, :, 4::4])
+    return np.where(neg[:, :, None], -d, d).astype(np.int8)
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_glv_digits_round_trip(native, monkeypatch):
+    """`glv_split` (the native split, or `host.glv.decompose` a scalar) and
+    the kernel's Booth digits of its halves: 33 digits in [-8, 8] a half,
+    each half's digits summing to its signed magnitude, k1 + k2 * lambda =
+    k (mod r), |k_h| < 2^129, the one-scalar form equal to its column of
+    the per-point form; a scalar not below r is refused."""
+    if not native:
+        monkeypatch.setattr(glv, "decompose_batch_raw", lambda ks, n: None)
+    ks = _special_scalars() + [random.Random(5).randrange(R)
+                               for _ in range(40)]
+    words = torch.from_numpy(_words(ints_to_bits(ks, msm.NBITS), True))
+    halves = K.glv_split(words)
+    assert halves.shape == (2, K.GLV_HALF_WORDS, len(ks))
+    assert halves.dtype == torch.int32
+    w = halves.numpy().view(np.uint32)
+    digits = _glv_digits(halves)
+    assert digits.shape == (2, len(ks), K.GLV_WINDOWS)
+    assert np.abs(digits).max() <= 8
+    for i, k in enumerate(ks):
+        signed = []
+        for h in range(2):
+            mag = sum(int(v) << (32 * j) for j, v in enumerate(w[h, :, i]))
+            mag, neg = mag & ((1 << 159) - 1), mag >> 159
+            assert mag < 1 << 129
+            signed.append(-mag if neg else mag)
+            assert sum(int(d) << (4 * j)
+                       for j, d in enumerate(digits[h, i])) == signed[-1]
+        assert (signed[0] + signed[1] * LAMBDA - k) % R == 0
+        one = K.glv_split(words[:, i].contiguous())
+        assert one.shape == (2, K.GLV_HALF_WORDS)
+        assert np.array_equal(one.numpy(), halves.numpy()[:, :, i])
+    with pytest.raises(ValueError, match="below r"):
+        K.glv_split(torch.from_numpy(_words(ints_to_bits([R], msm.NBITS)[0])))
+
+
+def test_beta_constant_is_the_host_glv_beta(lib):
+    out = np.zeros(12, np.uint32)
+    lib.cc_beta(_ptr(out))
+    assert sum(int(v) << (32 * i) for i, v in enumerate(out)) == \
+        FQ.to_mont(BETA)
 
 
 def test_doubling_core_and_plain_equal_g1_double(lib, case):
@@ -233,3 +365,14 @@ def test_device_backend_on_cpu_matches_host(case):
     # below MIN_DEVICE_SIZE the host serves
     few = pts[:b.MIN_DEVICE_SIZE - 1]
     assert b.batch_mul(few, k) == h.batch_mul(few, k)
+
+
+def test_device_backend_outputs_leave_as_affine_points(case):
+    """The all-device backend's ladder outputs leave the device through
+    `points_from_device` as affine points (z = 1, or infinity), so no
+    projective representative of the kernel's reaches a transcript."""
+    b = DeviceBackend(device="cpu")
+    pts, left, k = case["pts"], case["left"], case["k"]
+    for out in (b.batch_mul(pts, k), b.batch_mul_each(pts, case["ks"]),
+                b.fold_points(left, pts, k)):
+        assert all(p.is_infinity() or p.z == 1 for p in out)
