@@ -23,7 +23,12 @@ Phases (any failure exits non-zero; nothing is caught):
    (the 626k reduction's W*G) and 512 lanes (the protocol's c = 8 W*G), and
    g1_sqrt at n = 128 (a protocol MSM's padded bases), g1_horner on window
    sums taken from the 626k fold's slots at 1536 relations (a table-mode
-   same-msm round at B = 256) and 96 (slot mode's at B = 16). The three
+   same-msm round at B = 256) and 96 (slot mode's at B = 16), with the
+   bound on the reference's count logged beside its own, then its G
+   trial: the source built with the other lanes a relation (4 or 8,
+   `kernel_probe.HornerVariant`, after the timed checks of g1_horner and
+   with nothing else running beside its nvcc) and timed in turns with the
+   store's kernel at both widths, the outputs equal. The three
    folds, the two suffix entries and fq_mul also carry `kernel_ms`, their
    device time without host gaps (`common.graph_ms`: launches captured in
    a CUDA graph). The ptxas registers, spills and stack of fq_mul, the three
@@ -184,8 +189,8 @@ import torch
 # the 626k MSM's data and the folds' inputs: one definition, shared with
 # `kernel_probe.py fold`
 from curdleproofs_tpu_torch.tools.kernel_probe import (
-    FOLD_N as N_BIG, FOLD_ROWS_S, FOLD_SEED, FOLD_TILE as TILE, fold_data,
-    fold_inputs, fold_row_kinds,
+    FOLD_N as N_BIG, FOLD_ROWS_S, FOLD_SEED, FOLD_TILE as TILE, HornerVariant,
+    fold_data, fold_inputs, fold_row_kinds, horner_g_trial,
 )
 # the card line, its integer bound and the graph timer: shared with the tools
 from curdleproofs_tpu_torch.tools.common import (
@@ -281,6 +286,10 @@ OWN_PATH = {"g1_fold_packed": FULL_ADD_PATH, "g1_suffix_weighted": BIG_PATH,
 # g1_horner's widths: a same-msm round's relations (6 a proof) in table
 # mode at B = 256 and in slot mode at B = 16
 HORNER_RELS = (6 * PROVE_B, 6 * SLOT_B)
+# a relation's chain of dependent products in g1_horner: two levels a point
+# operation, 320 of them, and leave-Montgomery's one (one thread running
+# the reference's 320 complete adds: 3,843)
+HORNER_CHAIN = 320 * 2 + 1
 
 
 def log(*a):
@@ -299,6 +308,16 @@ def sqrt_mul32(digits) -> int:
     squarings = 2 + 2 * len(rest)
     products = 2 + sum(1 for d in rest if d)
     return squarings * MUL32_PER_FQ_SQR + products * MUL32_PER_FQ_MUL
+
+
+def horner_mul32(reference: bool = False) -> int:
+    """32-bit multiplies of one relation's Horner step: 256 complete
+    doublings (6 products and 2 squarings) and 64 complete adds (12
+    products), or with `reference` the reference's 320 complete adds, then
+    3 products to leave Montgomery form."""
+    dbl = (12 * MUL32_PER_FQ_MUL if reference
+           else 6 * MUL32_PER_FQ_MUL + 2 * MUL32_PER_FQ_SQR)
+    return 256 * dbl + (64 * 12 + 3) * MUL32_PER_FQ_MUL
 
 
 def event_ms(fn, reps: int):
@@ -555,21 +574,37 @@ def main() -> int:
 
     # g1_horner on window sums taken from the fold's slots (projective
     # representatives of real bucket sums, [24, n_rel, 64]) at both of
-    # HORNER_RELS.  Bound: 320 complete adds and 3
-    # products a relation, the [24, n_rel, 64] sums read and [3, 24, n_rel]
-    # written once.
+    # HORNER_RELS, array-equal to the plain version (the complete doubling
+    # gives the complete self-add's words on the curve).  Bound: a
+    # relation's 256 complete doublings (6 products, 2 squarings), 64
+    # complete adds (12 products) and 3 products, the [24, n_rel, 64] sums
+    # read and [3, 24, n_rel] written once.  The log line beside it gives
+    # the bound on the reference's count (320 complete adds) and the
+    # chain's length; neither goes into the kernels line.
     def horner_check(shape, ws):
         n_rel = ws[0].shape[1]
-        return check("g1_horner", shape, lambda: (K.g1_horner(*ws),),
-                     lambda: (K.g1_horner_plain(*ws),), 5,
-                     3 * 96 * 64 * n_rel + 3 * 48 * n_rel,
-                     n_rel * (320 * 12 + 3) * MUL32_PER_FQ_MUL)
+        check("g1_horner", shape, lambda: (K.g1_horner(*ws),),
+              lambda: (K.g1_horner_plain(*ws),), 5,
+              3 * 96 * 64 * n_rel + 3 * 48 * n_rel, n_rel * horner_mul32())
+        log(f"  g1_horner at n_rel = {n_rel}: bound on the reference's "
+            f"count {bound(0, n_rel * horner_mul32(reference=True))[0]:.4f}"
+            f" ms; a relation's chain {HORNER_CHAIN} dependent products")
 
-    for n_rel in HORNER_RELS:
-        horner_check(f"n_rel = {n_rel} (window sums from the 626k fold's "
-                     f"slots)", tuple(c[:, :n_rel * 64].reshape(24, n_rel, 64)
-                                      for c in acc))
+    horner_ws = [tuple(c[:, :n_rel * 64].reshape(24, n_rel, 64) for c in acc)
+                 for n_rel in HORNER_RELS]
+    for ws in horner_ws:
+        horner_check(f"n_rel = {ws[0].shape[1]} (window sums from the 626k "
+                     f"fold's slots)", ws)
     with_ptxas("g1_horner", "g1_horner_kernel")
+    # the G trial builds its variant here, after g1_horner's timed checks
+    # and with no other work beside the nvcc, then times it in turns
+    trial = horner_g_trial(HornerVariant(aot.aot_dir() / "g1_horner_trial"),
+                           horner_ws)
+    records["g1_horner"]["g_trial"] = trial
+    log(f"g1_horner G trial ({trial['turns']}; nvcc of the variant "
+        f"{trial['variant_build_s']:.1f} s, ptxas {trial['variant_ptxas']}): "
+        + json.dumps(trial["ms"]))
+    del horner_ws
 
     partner = torch.clamp(torch.arange(s_pad, device=dev) + 1, max=s_pad - 1)
     nxt = PointsXYZ(*(c[:, partner] for c in acc))

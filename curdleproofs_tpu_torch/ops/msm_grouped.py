@@ -11,9 +11,10 @@ Differences from the single-MSM pipeline (`ops/msm_device.py`):
 
 - Output axis: each relation (output point) owns its own window rows and
   bucket space; window sums reduce to final points ON DEVICE with a Horner
-  ladder (64 x [4 doublings + add], one thread a relation of one
-  `g1_horner` launch; a doubling is the complete add of a point to itself,
-  as in the reference), so the download is [3, 24, n_rel] canonical points.
+  ladder (64 x [4 doublings + add], a group of lanes a relation of one
+  `g1_horner` launch; a doubling is the complete doubling, whose
+  coordinates on the curve are those of the reference's complete add of a
+  point to itself), so the download is [3, 24, n_rel] canonical points.
 - c = 4 windows (W = 64, 8 buckets).  64*4 = 256 > 255 bits, so the top
   window is always 0..7 and absorbs the signed-recode carry.
 - No sort: with 8 buckets, per-entry in-bucket ranks come from a one-hot
@@ -234,10 +235,11 @@ def grouped_core(ext_px, ext_py, ext_zb, digits, col_pts, *,
 def horner_device(wsums: PointsXYZ) -> torch.Tensor:
     """[24, n_rel, W] Montgomery window sums -> [3, 24, n_rel] CANONICAL
     projective points: acc = ((ws[W-1] * 16 + ws[W-2]) * 16 + ...), 64
-    iterations of 4 doublings + 1 add, each relation's chain in one thread
-    of one `g1_horner` launch on the card (a doubling adds acc to itself,
-    as the reference does, so the representatives are the reference's),
-    then leave-Montgomery; on the CPU its plain version."""
+    iterations of 4 doublings + 1 add, each relation's chain in a group of
+    lanes of one `g1_horner` launch on the card (a doubling is the complete
+    doubling, whose words on the curve are those of the reference's
+    complete add of acc to itself), then leave-Montgomery; on the CPU its
+    plain version."""
     return g1_horner(*wsums)
 
 

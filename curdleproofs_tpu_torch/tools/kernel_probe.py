@@ -27,6 +27,12 @@ the kernel store recorded them), and the plan's row kinds (`fold_row_kinds`).  W
 one card.
 
 Each prints one JSON line; `nvidia-smi`'s name and power limit come first.
+
+`HornerVariant` and `horner_g_trial` (run by `chip_smoke.py` phase 2):
+`csrc/g1_horner.cu` built with another `HORNER_G` (lanes a relation) into
+a directory of its own, nvcc started in the background, then timed against
+the kernel store's g1_horner in turns (kernel, variant, variant, kernel),
+each with `graph_ms`, on the same window sums, both outputs equal.
 """
 
 from __future__ import annotations
@@ -35,6 +41,9 @@ import argparse
 import json
 import pathlib
 import random
+import re
+import shutil
+import subprocess
 import sys
 import time
 
@@ -290,6 +299,100 @@ def fold_probe() -> dict:
                            "rows_shape": list(rows[0].shape),
                            "kernel_ms": ms, "ptxas": usage,
                            "row_kinds": fold_row_kinds(*ext, plan)}}
+
+
+_HORNER_G = re.compile(r"constexpr int HORNER_G = (\d+);")
+HORNER_G_TRIAL = (4, 8)   # the lanes a relation the G trial sets apart
+
+
+def horner_g() -> int:
+    """`HORNER_G` of csrc/g1_horner.cu: the kernel's lanes a relation."""
+    from curdleproofs_tpu_torch.ops import aot
+
+    return int(_HORNER_G.search((aot.CSRC / "g1_horner.cu").read_text())
+               .group(1))
+
+
+class HornerVariant:
+    """`csrc/g1_horner.cu` with the other `HORNER_G` of HORNER_G_TRIAL than
+    the source's own, built by nvcc (the kernel store's flags) into
+    `directory`; the build starts at construction and runs beside the
+    caller's work until `launcher()`."""
+
+    def __init__(self, directory: pathlib.Path):
+        from curdleproofs_tpu_torch.ops import aot
+
+        src = (aot.CSRC / "g1_horner.cu").read_text()
+        self.shipped_g = horner_g()
+        g = self.g = next(g for g in HORNER_G_TRIAL if g != self.shipped_g)
+        d = pathlib.Path(directory)
+        d.mkdir(parents=True, exist_ok=True)
+        for f in ("fq_cc.cuh", "g1_horner.cuh"):
+            shutil.copy(aot.CSRC / f, d / f)
+        (d / "g1_horner.cu").write_text(
+            _HORNER_G.sub(f"constexpr int HORNER_G = {g};", src))
+        self.so = d / "libg1_horner.so"
+        self.log = d / "nvcc.log"
+        self._t0 = time.perf_counter()
+        with open(self.log, "w") as out:
+            self._proc = subprocess.Popen(
+                [aot._nvcc(), *aot.NVCC_FLAGS, "-I", str(d), "-o",
+                 str(self.so), str(d / "g1_horner.cu")],
+                stdout=out, stderr=subprocess.STDOUT)
+
+    def launcher(self):
+        """Wait for the build; (launch(x, y, z) -> [3, 24, n_rel] on the
+        current stream, the ptxas report, nvcc seconds)."""
+        import ctypes
+
+        rc = self._proc.wait()
+        build_s = time.perf_counter() - self._t0
+        report = self.log.read_text()
+        if rc != 0:
+            raise RuntimeError(f"g1_horner with HORNER_G = {self.g} failed "
+                               f"to build:\n{report}")
+        fn = ctypes.CDLL(str(self.so)).cp_g1_horner
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int64,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def launch(x, y, z):
+            x, y, z = (t.contiguous() for t in (x, y, z))
+            out = torch.empty((3, 24, x.shape[1]), dtype=torch.int32,
+                              device=x.device)
+            rc = fn(x.data_ptr(), y.data_ptr(), z.data_ptr(), out.data_ptr(),
+                    x.shape[1], torch.cuda.current_stream().cuda_stream)
+            if rc != 0:
+                raise RuntimeError(f"g1_horner variant: cudaError {rc}")
+            return out
+
+        return launch, report, build_s
+
+
+def horner_g_trial(variant: HornerVariant, window_sums) -> dict:
+    """The kernel store's g1_horner against `variant` on each of
+    `window_sums` ([24, n_rel, 64] x 3 on the card), in turns (kernel,
+    variant, variant, kernel), each turn `graph_ms` of 5 launches replayed
+    4 times; the two outputs must be equal (the same field operations)."""
+    from curdleproofs_tpu_torch.ops import kernels as K
+
+    launch, report, build_s = variant.launcher()
+    g0, g1 = variant.shipped_g, variant.g
+    fns = {g0: K.g1_horner, g1: launch}
+    ms = {g0: {}, g1: {}}
+    for ws in window_sums:
+        ws = tuple(c.contiguous() for c in ws)   # no copy in the turns
+        n_rel = ws[0].shape[1]
+        if not torch.equal(K.g1_horner(*ws), launch(*ws)):
+            raise AssertionError(f"g1_horner at HORNER_G = {g0} and {g1} "
+                                 f"differ at n_rel = {n_rel}")
+        for g in (g0, g1, g1, g0):
+            ms[g].setdefault(str(n_rel), []).append(
+                graph_ms(lambda: fns[g](*ws), per_graph=5, replays=4))
+    return {"turns": f"G = {g0}, {g1}, {g1}, {g0}",
+            "ms": {str(g): v for g, v in ms.items()},
+            "variant_ptxas": K.ptxas_usage(report, "g1_horner_kernel"),
+            "variant_build_s": build_s}
 
 
 def main() -> int:

@@ -623,11 +623,13 @@ def test_grouped_table_on_card(madd):
     assert decode_points(outs[0].numpy())[: len(rels)] == host
 
 
-@pytest.mark.parametrize("n_rel", [8, 40, 100])
+@pytest.mark.parametrize("n_rel", [8, 37, 40, 100])
 def test_horner_kernel_matches_plain(n_rel):
-    """g1_horner at ragged widths (a warp, or a block, partly past the last
-    relation), array-equal to its plain version, on window sums with
-    points at infinity (0 : 1 : 0) among them."""
+    """g1_horner at ragged widths (a block, at 37 also a warp, partly past
+    the last relation: groups of 8 lanes a relation, 4 a warp, 16 a block),
+    array-equal to its plain version (the complete doubling gives the
+    complete self-add's words on the curve), on window sums with points at
+    infinity (0 : 1 : 0) among them."""
     dev = _card()
     ps, qs = _pairs(n_rel * 64)
     s = kernels.g1_add_plain(points_to_device(ps, "cpu"),
