@@ -21,26 +21,33 @@ Phases (any failure exits non-zero; nothing is caught):
    timed against each other in turns; fq_mul at leave-Montgomery's [24, 3W
    = 96]), fq_mul, g1_add and g1_add_rows at 2^16, g1_add at 32,768 lanes
    (the 626k reduction's W*G) and 512 lanes (the protocol's c = 8 W*G), and
-   g1_sqrt at n = 128 (a protocol MSM's padded bases), g1_horner on window
-   sums taken from the 626k fold's slots at 1536 relations (a table-mode
-   same-msm round at B = 256) and 96 (slot mode's at B = 16), with the
-   bound on the reference's count logged beside its own, then its G
-   trial: the source built with the other lanes a relation (4 or 8,
-   `kernel_probe.HornerVariant`, after the timed checks of g1_horner and
-   with nothing else running beside its nvcc) and timed in turns with the
-   store's kernel at both widths, the outputs equal. The three
-   folds, the two suffix entries and fq_mul also carry `kernel_ms`, their
-   device time without host gaps (`common.graph_ms`: launches captured in
-   a CUDA graph). The ptxas registers, spills and stack of fq_mul, the three
-   folds, g1_add, both suffix entries, g1_sqrt and g1_horner go into their
-   records
-   (g1_add's scan entry under `scan_registers`, `scan_spill_bytes`; the
-   tree entry at Cb = 16 under `cb16_`), and the records of g1_fold_packed
-   and g1_fold_rows their rows by kind (`kernel_probe.fold_row_kinds`, from
-   which both kernels' bounds are counted); the 626k bases made resident
-   compressed (x + parity, y from g1_sqrt) and uncompressed must be bit-
-   identical, with each upload's wall time and bytes (after one untimed
-   warm-up upload, three timed uploads each way, in turns);
+   g1_horner on window sums taken from the 626k fold's slots (copied
+   contiguous, as the batched prover hands them over) at 1536
+   relations (a table-mode same-msm round at B = 256) and 96 (slot mode's
+   at B = 16), with the bound on the reference's count logged beside its
+   own (the trial of its lanes a relation is `kernel_probe.py horner-g`,
+   on demand: G = 8 is settled, so this script builds no variant). The
+   narrow entries at the protocol's widths: g1_sqrt's pair entry at n =
+   128 and 768 (a protocol MSM's padded fresh bases), g1_add's group
+   entries at 32 lanes (the reduction tail's doubling chain over W) and
+   512 (the c = 8 W*G), the scan step's over a real c = 8 plan's slots and
+   at 32 and 512 lanes, each also beside the one-thread entry at the same
+   width; each record's checks name the entry they took (`entry`). The
+   three folds, the two suffix entries, fq_mul and the narrow entries also
+   carry `kernel_ms`, their device time without host gaps
+   (`common.graph_ms`: launches captured in a CUDA graph). The ptxas
+   registers, spills and stack of fq_mul, the three folds, g1_add, both
+   suffix entries, g1_sqrt and g1_horner go into their records (g1_add's
+   scan entry under `scan_registers`, `scan_spill_bytes`, its group entries
+   under `group_` and `scan_group_`, g1_sqrt's pair entry under `pair_`;
+   the tree entry at Cb = 16 under `cb16_`), and the records of
+   g1_fold_packed and g1_fold_rows their rows by kind
+   (`kernel_probe.fold_row_kinds`, from which both kernels' bounds are
+   counted); the 626k bases made resident compressed (x + parity, y from
+   g1_sqrt) and uncompressed must be bit-identical, with each upload's
+   wall time and bytes (after one untimed warm-up upload, three timed
+   uploads each way, in turns), and the same at a protocol MSM's 64, 128,
+   256 and 768 points (whether the compressed upload pays there);
 3. the MSM at real size: `msm_device` at n = 2^16 (c = 8) and n = 626,000
    (c = 16, batch verification's deduped MSM at B = 1024, l = 252), each
    equal to the native host MSM, with per-stage device times and peak
@@ -164,10 +171,11 @@ own main path under `launches` (the protocol run; for g1_fold_packed the
 full-add MSM, for the suffix kernel's chain entry the 626k MSM, whose c =
 16 reduction is the only one it serves on one device, for g1_ladder the run on
 `DeviceBackend`; named in `launches_path`) and every path's under
-`launches_by_path`, with its source's nvcc seconds (`build_s`, phase 2),
-its C entries' library binding in a fresh process (`cold_lib_load_ms`)
-and their first launches (`cold_first_launch_ms`, phase 10); the last line
-is the device record.
+`launches_by_path`, with the launches of each of its C entries on its own
+main path (`launches_by_entry`), its source's nvcc seconds (`build_s`,
+phase 2), its C entries' library binding in a fresh process
+(`cold_lib_load_ms`) and their first launches (`cold_first_launch_ms`,
+phase 10); the last line is the device record.
 """
 
 from __future__ import annotations
@@ -189,8 +197,8 @@ import torch
 # the 626k MSM's data and the folds' inputs: one definition, shared with
 # `kernel_probe.py fold`
 from curdleproofs_tpu_torch.tools.kernel_probe import (
-    FOLD_N as N_BIG, FOLD_ROWS_S, FOLD_SEED, FOLD_TILE as TILE, HornerVariant,
-    fold_data, fold_inputs, fold_row_kinds, horner_g_trial,
+    FOLD_N as N_BIG, FOLD_ROWS_S, FOLD_SEED, FOLD_TILE as TILE, fold_data,
+    fold_inputs, fold_row_kinds,
 )
 # the card line, its integer bound and the graph timer: shared with the tools
 from curdleproofs_tpu_torch.tools.common import (
@@ -446,8 +454,12 @@ def main() -> int:
         points after affine normalization, `affine_err`) and time both
         (`graph`: also the kernel's device time without host gaps).  The
         first check of a kernel fills its record, later ones (other shapes
-        of the same kernel) go under its `more_shapes`."""
+        of the same kernel) go under its `more_shapes`; each names the C
+        entries its launches took (`entry`)."""
+        before = dict(K.LAUNCHES_BY_ENTRY)
         got, ms = event_ms(kernel, reps)
+        entry = sorted(e for e, v in K.LAUNCHES_BY_ENTRY.items()
+                       if v != before[e])
         want, plain_ms = event_ms(plain, 1)
         err = (affine_err(got, want, K.fq_mul_plain) if affine
                else max_abs_err(got, want))
@@ -455,8 +467,9 @@ def main() -> int:
             raise AssertionError(f"kernel {name} at {shape} disagrees with "
                                  f"its plain version: max |diff| = {err}")
         b_ms, b_by = bound(nbytes, nmul)
-        at = {"shape": shape, "match": True, "max_abs_err": err, "ms": ms,
-              "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by}
+        at = {"shape": shape, "entry": ", ".join(entry), "match": True,
+              "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+              "bound_ms": b_ms, "bound_by": b_by}
         if affine:
             at["compared"] = "after affine normalization"
         if graph:
@@ -470,7 +483,7 @@ def main() -> int:
                           f"{K.source_of(name)}.cu",
                 "replaces": REPLACES[name], **at, "library_ms": None,
                 "more_shapes": []}
-        log(f"kernel {name} at {shape}: equal to plain"
+        log(f"kernel {name} at {shape} ({at['entry']}): equal to plain"
             + (" after affine normalization" if affine else "")
             + f"; {ms:.4f} ms "
             + (f"(kernel {at['kernel_ms']:.4f} ms) " if graph else "")
@@ -529,6 +542,37 @@ def main() -> int:
                                "host_export_ms": export_u}}
     log(f"bases n={N_BIG}: compressed and uncompressed residency "
         f"bit-identical; upload " + json.dumps(ingest))
+    # the same at a protocol MSM's sizes (fresh bases of 64-768 points),
+    # each size warmed up once, then three uploads each way in turns
+    ingest_small = []
+    for n_up in (64, 128, 256, 768):
+        pts_up = tiled(n_up, 100 + n_up)
+        pad_up = md.pad_n(n_up)
+        walls = {"1": [], "0": []}
+        layouts = {}
+        for flag in ("1", "0", "1", "0", "0", "1", "1", "0"):
+            os.environ["CURDLEPROOFS_COMPRESS"] = flag
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            layouts[flag] = md.DeviceBases(pts_up, dev)
+            torch.cuda.synchronize()
+            walls[flag].append((time.perf_counter() - t0) * 1e3)
+        del os.environ["CURDLEPROOFS_COMPRESS"]
+        a_up, b_up = layouts["1"], layouts["0"]
+        if not all(torch.equal(x, y) for x, y in zip(
+                (a_up.ext_px, a_up.ext_py, a_up.ext_zb),
+                (b_up.ext_px, b_up.ext_py, b_up.ext_zb))):
+            raise AssertionError(f"compressed and uncompressed residency "
+                                 f"differ at n = {n_up}")
+        ingest_small.append({
+            "points": n_up, "padded": pad_up,
+            "compressed": {"wall_ms": walls["1"][1:],
+                           "bytes": 4 * (12 + 1) * pad_up},
+            "uncompressed": {"wall_ms": walls["0"][1:],
+                             "bytes": 4 * (12 + 12 + 1) * pad_up}})
+    log("bases at a protocol MSM's sizes: compressed and uncompressed "
+        "residency bit-identical; upload (warm-up dropped) "
+        + json.dumps(ingest_small))
 
     # The 626k MSM's own shapes (the device's real load): both folds on its
     # plan, the merge's first g1_add over all its slots, the suffix kernel
@@ -585,25 +629,18 @@ def main() -> int:
         n_rel = ws[0].shape[1]
         check("g1_horner", shape, lambda: (K.g1_horner(*ws),),
               lambda: (K.g1_horner_plain(*ws),), 5,
-              3 * 96 * 64 * n_rel + 3 * 48 * n_rel, n_rel * horner_mul32())
+              3 * 96 * 64 * n_rel + 3 * 48 * n_rel, n_rel * horner_mul32(),
+              graph=True)
         log(f"  g1_horner at n_rel = {n_rel}: bound on the reference's "
             f"count {bound(0, n_rel * horner_mul32(reference=True))[0]:.4f}"
             f" ms; a relation's chain {HORNER_CHAIN} dependent products")
 
-    horner_ws = [tuple(c[:, :n_rel * 64].reshape(24, n_rel, 64) for c in acc)
-                 for n_rel in HORNER_RELS]
+    horner_ws = [tuple(c[:, :n_rel * 64].reshape(24, n_rel, 64).contiguous()
+                       for c in acc) for n_rel in HORNER_RELS]
     for ws in horner_ws:
         horner_check(f"n_rel = {ws[0].shape[1]} (window sums from the 626k "
                      f"fold's slots)", ws)
     with_ptxas("g1_horner", "g1_horner_kernel")
-    # the G trial builds its variant here, after g1_horner's timed checks
-    # and with no other work beside the nvcc, then times it in turns
-    trial = horner_g_trial(HornerVariant(aot.aot_dir() / "g1_horner_trial"),
-                           horner_ws)
-    records["g1_horner"]["g_trial"] = trial
-    log(f"g1_horner G trial ({trial['turns']}; nvcc of the variant "
-        f"{trial['variant_build_s']:.1f} s, ptxas {trial['variant_ptxas']}): "
-        + json.dumps(trial["ms"]))
     del horner_ws
 
     partner = torch.clamp(torch.arange(s_pad, device=dev) + 1, max=s_pad - 1)
@@ -614,16 +651,21 @@ def main() -> int:
     with_ptxas("g1_add", "g1_add_kernel")
     with_ptxas("g1_add", "g1_add_scan_kernel", "scan_")
 
-    def scan_check(shape, v, key, stride, reps):
+    def scan_check(shape, v, key, stride, reps, group=None, graph=False):
         """g1_add's scan entry: one merge or suffix round; its bound counts
         the lanes whose partner holds the same key (the others copy)."""
         n = key.shape[0]
         live = int((key[stride:] == key[:n - stride]).sum()) \
             if stride < n else 0
         check("g1_add", f"{shape}, stride {stride} ({live} lanes add)",
-              lambda: K.g1_add_scan(v, key, stride),
+              lambda: K.g1_add_scan(v, key, stride, group=group),
               lambda: K.g1_add_scan_plain(v, key, stride), reps,
-              (2 * 288 + 8) * n, live * 12 * MUL32_PER_FQ_MUL)
+              (2 * 288 + 8) * n, live * 12 * MUL32_PER_FQ_MUL, graph=graph)
+
+    def both_entries(n, uses):
+        """The routed entry (None), then the other one forced, at a narrow
+        width (the protocol's), where both are held and timed."""
+        return (None, not uses(n))
 
     scan_check(f"scan step, merge N = {s_pad}", acc, sp.slot_gkey, 1, 5)
 
@@ -656,8 +698,13 @@ def main() -> int:
         [rnd.randrange(R) for _ in range(256)], p8.n).astype(np.int32)).to(dev)
     sp8 = md._slot_plan(md._signed_digits(l8, p8.n, p8.c), n=p8.n, c=p8.c,
                         t_rows=p8.t_rows, s_pad=p8.s_pad)
-    acc8 = md._suffix_scan(K.g1_fold_madd(b8.ext_px, b8.ext_py, b8.ext_zb,
-                                          sp8.plan), sp8.slot_gkey, sp8.kmax)
+    fold8 = K.g1_fold_madd(b8.ext_px, b8.ext_py, b8.ext_zb, sp8.plan)
+    # the merge's first scan step over the plan's slots, both entries
+    for group in both_entries(sp8.slot_gkey.shape[0], K.add_uses_group):
+        scan_check(f"scan step, merge of a c = 8 plan of 256 points, N = "
+                   f"{sp8.slot_gkey.shape[0]}", fold8, sp8.slot_gkey, 1, 20,
+                   group=group, graph=True)
+    acc8 = md._suffix_scan(fold8, sp8.slot_gkey, sp8.kmax)
     d8 = md._dense_buckets(acc8, sp8.firstmap, p8.c, p8.windows)
     cb8, wg8 = d8.x.shape[1:]
     shape8 = f"Cb = {cb8}, WG = {wg8} (c = 8 plan of 256 points)"
@@ -693,17 +740,23 @@ def main() -> int:
               lambda: (K.fq_mul_plain(lm, one_plain),),
               50, 2 * 96 * 3 * w + 96, 3 * w * MUL32_PER_FQ_MUL, graph=True)
     with_ptxas("fq_mul", "fq_mul_kernel")
-    del b8, l8, sp8, acc8, d8, lm
+    del b8, l8, sp8, fold8, acc8, d8, lm
 
     pxp = md.u32_to_tensor(px, dev)
     check("g1_sqrt", f"n = {n_pad} (x of the 626k MSM's padded bases)",
           lambda: (K.g1_sqrt(pxp),), lambda: (K.g1_sqrt_plain(pxp),), 3,
           (48 + 96) * n_pad, n_pad * sqrt_mul32(K.SQRT_DIGITS))
     with_ptxas("g1_sqrt", "g1_sqrt_kernel")
-    px128 = pxp[:, :128].contiguous()
-    check("g1_sqrt", "n = 128 (a protocol MSM's padded bases)",
-          lambda: (K.g1_sqrt(px128),), lambda: (K.g1_sqrt_plain(px128),), 50,
-          (48 + 96) * 128, 128 * sqrt_mul32(K.SQRT_DIGITS))
+    # a protocol MSM's padded fresh bases: the routed entry (the pair below
+    # SQRT_PAIR_MAX_N), then the other at the same width
+    for n_s in (128, 768):
+        pxs = pxp[:, :n_s].contiguous()
+        for pair in both_entries(n_s, K.sqrt_uses_pair):
+            check("g1_sqrt", f"n = {n_s} (a protocol MSM's padded bases)",
+                  lambda: (K.g1_sqrt(pxs, pair=pair),),
+                  lambda: (K.g1_sqrt_plain(pxs),), 50, (48 + 96) * n_s,
+                  n_s * sqrt_mul32(K.SQRT_DIGITS), graph=True)
+    with_ptxas("g1_sqrt", "g1_sqrt_pair_kernel", "pair_")
 
     # fq_mul and g1_add also at N = 2^16 lanes
     n16 = N_SMALL
@@ -719,18 +772,35 @@ def main() -> int:
     check("g1_add_rows", f"N = {n16}", lambda: K.g1_add_rows(pp, b),
           lambda: K.g1_add_rows_plain(pp, b),
           20, 9 * 96 * n16, n16 * 12 * MUL32_PER_FQ_MUL)
-    for nw, what in ((32_768, "the 626k reduction's W*G"),
-                     (512, "the protocol's c = 8 W*G")):
+    pw, bw = (PointsXYZ(*(c[:, :32_768].contiguous() for c in v))
+              for v in (pp, b))
+    check("g1_add", "N = 32768 (the 626k reduction's W*G)",
+          lambda: K.g1_add(pw, bw), lambda: K.g1_add_plain(pw, bw), 100,
+          9 * 96 * 32_768, 32_768 * 12 * MUL32_PER_FQ_MUL)
+    # the protocol's widths, each entry: the c = 8 W*G (512 lanes) and the
+    # reduction tail's doubling chain over W = 32 lanes (s2 + s2); the scan
+    # step at both widths, a window's G = 16 chunks a key
+    for nw, what, same in ((512, "the protocol's c = 8 W*G", False),
+                           (32, "the doubling chain over W, P + P", True)):
         pw, bw = (PointsXYZ(*(c[:, :nw].contiguous() for c in v))
                   for v in (pp, b))
-        check("g1_add", f"N = {nw} ({what})", lambda: K.g1_add(pw, bw),
-              lambda: K.g1_add_plain(pw, bw), 100, 9 * 96 * nw,
-              nw * 12 * MUL32_PER_FQ_MUL)
-    del pp, a, b, pw, bw, dense, tg, wkey, sp, acc, nxt, pxp
-    del px128, px
+        if same:
+            bw = pw
+        for group in both_entries(nw, K.add_uses_group):
+            check("g1_add", f"N = {nw} ({what})",
+                  lambda: K.g1_add(pw, bw, group=group),
+                  lambda: K.g1_add_plain(pw, bw), 100, 9 * 96 * nw,
+                  nw * 12 * MUL32_PER_FQ_MUL, graph=True)
+        for group in both_entries(nw, K.add_uses_group):
+            scan_check(f"scan step, N = {nw}, G = 16 chunks a key", pw,
+                       torch.arange(nw, device=dev) // 16, 1, 100,
+                       group=group, graph=True)
+    with_ptxas("g1_add", "g1_add_group_kernel", "group_")
+    with_ptxas("g1_add", "g1_add_scan_group_kernel", "scan_group_")
+    del pp, a, b, pw, bw, dense, tg, wkey, sp, acc, nxt, pxp, pxs, px
 
     # -- phases 3 to 6: each path counted on its own ------------------------
-    by_path = {}
+    by_path, by_entry = {}, {}
 
     def counted(path):
         """Launch counts of one driven path: zeroed just before it, read
@@ -738,12 +808,23 @@ def main() -> int:
         launched in it."""
         torch.cuda.synchronize()
         launches = dict(K.LAUNCHES)
-        log(f"kernel launches, {path}: {json.dumps(launches)}")
+        entries = dict(K.LAUNCHES_BY_ENTRY)
+        log(f"kernel launches, {path}: {json.dumps(launches)}; by the "
+            f"entries of g1_add and g1_sqrt: " + json.dumps(
+                {e: entries[e] for e in (*K.ENTRIES["g1_add"],
+                                         *K.ENTRIES["g1_sqrt"])}))
+        for src, names in (("g1_add", ("g1_add", "g1_add_rows")),
+                           ("g1_sqrt", ("g1_sqrt",))):
+            if sum(entries[e] for e in K.ENTRIES[src]) \
+                    != sum(launches[k] for k in names):
+                raise AssertionError(f"{path}: {src}'s launches by entry "
+                                     f"do not add up")
         missing = sorted(k for k in EXPECTED[path] if launches[k] == 0)
         if missing:
             raise AssertionError(f"kernels never launched on {path}: "
                                  f"{missing}")
         by_path[path] = launches
+        by_entry[path] = entries
 
     host = HostBackend()
     host_want = {}                # phase 3's host results, reused in phase 9
@@ -1823,6 +1904,8 @@ def main() -> int:
             if e.split()[0] in K.ENTRIES[src]}
         path = OWN_PATH.get(name, MAIN_PATH)
         rec["launches"] = by_path[path][name]
+        rec["launches_by_entry"] = {e: by_entry[path][e]
+                                    for e in K.ENTRIES[src]}
         rec["launches_path"] = ("kernel check only (no caller in the JAX "
                                 "package)") if name in NO_CALLER else path
         rec["launches_by_path"] = {p: v[name] for p, v in by_path.items()}

@@ -16,10 +16,11 @@
 // asm (fq_cc.cuh), so one lane never has two in flight, and nothing else
 // on a nearly empty card hides their latency (~1 us a product).
 //
-// Design: a group of HORNER_G lanes a relation (g1_horner.cuh).  Each lane
-// holds the accumulator; a point operation is two levels of independent
-// products (the complete add six and six, the complete doubling four and
-// four), each lane computing the product of its role and the group
+// Design: a group of HORNER_G lanes a relation (g1_horner.cuh, on the
+// group schedule of g1_group.cuh).  Each lane holds the accumulator; a
+// point operation is two levels of independent products (the complete
+// add six and six, the complete doubling four and four), each lane
+// computing the product of its role and the group
 // exchanging them by shuffles, so a relation's chain is 641 products
 // where one thread's was 3,843 (the reference's 320 complete adds).  The
 // 256 doublings use the complete doubling, whose coordinates on the curve
@@ -63,30 +64,6 @@ CC_HD void syncwarp() {
   __syncwarp();
 #endif
 }
-
-// The group's products by shuffles: a lane is one role.  (Its methods and
-// the staged windows' are host-device, as the schedule is, with the warp's
-// intrinsics in the device pass alone; only the kernel calls them.)
-template <int G_>
-struct ShuffleExchange {
-  static constexpr int G = G_, HERE = 1;
-  int r;
-  cc::Fq mine;
-  CC_HD int role(int) const { return r; }
-  CC_HD void put(int, const cc::Fq& m) { mine = m; }
-  CC_HD cc::Fq get(int src) const {
-#ifdef __CUDA_ARCH__
-    cc::Fq o;
-#pragma unroll
-    for (int i = 0; i < cc::NL; ++i)
-      o.v[i] = __shfl_sync(0xffffffffu, mine.v[i], src, G);
-    return o;
-#else
-    (void)src;
-    return mine;
-#endif
-  }
-};
 
 // The window sums of a warp's RELS relations, staged 8 windows at a time.
 // Every lane of the warp calls `open` with the same w, from 63 down.
@@ -145,7 +122,7 @@ g1_horner_kernel(const uint32_t* __restrict__ x, const uint32_t* __restrict__ y,
       ((int64_t)blockIdx.x * (HORNER_THREADS / 32) + warp) * RELS;
   if (rel0 >= n_rel) return;  // the whole warp lies past the last relation
   const int group = lane / HORNER_G;
-  ShuffleExchange<HORNER_G> ex{lane % HORNER_G, {}};
+  cc::ShuffleExchange<HORNER_G> ex{lane % HORNER_G, {}};
   StagedWindows win{x, y, z, n_rel, rel0, stage + warp * WARP_STAGE, lane,
                     group};
   const cc::Proj acc = cc::horner_group(ex, win);

@@ -5,14 +5,20 @@ Kernels (sources in `../csrc/`, one shared object each):
 - `fq_mul`             batched Montgomery product          (fq_mul.cu)
 - `g1_add`             complete projective add, and one    (g1_add.cu)
                        round of a masked suffix scan
-                       (`g1_add_scan`, its second entry)
+                       (`g1_add_scan`, its second entry);
+                       each routed by width to one thread
+                       a lane or to a group of 8 lanes a
+                       point (`add_uses_group`)
 - `g1_fold_madd`       Pippenger bucket fold, mixed adds   (g1_fold_madd.cu)
 - `g1_suffix_weighted` bucket-reduction inner step,        (g1_suffix_weighted.cu)
                        routed by shape to its chain entry
                        or to its tree entry
                        (`g1_suffix_weighted_tree`)
 - `g1_fold_packed`     Pippenger bucket fold, full adds    (g1_fold_packed.cu)
-- `g1_sqrt`            y from x, compressed base ingest    (g1_sqrt.cu)
+- `g1_sqrt`            y from x, compressed base ingest,   (g1_sqrt.cu)
+                       routed by width to one thread a
+                       point or to a pair of lanes a point
+                       (`sqrt_uses_pair`)
 - `g1_fold_rows`       fold of gathered [24, T, S] rows    (g1_fold_rows.cu)
 - `g1_add_rows`        batched add on [24, N] 3-tuples     (launches g1_add.cu)
 - `g1_ladder`          scalar multiplications by the GLV   (g1_ladder.cu)
@@ -35,10 +41,12 @@ per wrapper, so a run can show its main path went through the kernels
 (`g1_add_rows` counts its own launches of g1_add.cu's entry; `g1_add_scan`
 counts under `g1_add`; the tree entry of g1_suffix_weighted.cu counts under
 `g1_suffix_weighted_tree`; the ladder's three entries count under
-`g1_ladder`).  The ladder's outputs are other projective representatives
-than its plain version's (the reference's order of adds): they are equal
-after affine normalization; every other kernel's words are its plain
-version's.
+`g1_ladder`; g1_add.cu's group entries under `g1_add`, g1_sqrt.cu's pair
+entry under `g1_sqrt`).  `LAUNCHES_BY_ENTRY` counts the same launches by
+the C entry each took.  The ladder's outputs are other projective
+representatives than its plain version's (the reference's order of adds):
+they are equal after affine normalization; every other kernel's words are
+its plain version's.
 
 Build: `nvcc -gencode arch=compute_90a,code=sm_90a` at first use, one
 process per source, all started together, with the generated
@@ -71,7 +79,9 @@ from .g1_ops import (
 )
 from .limbs import FQ_LIMBS as L
 
-__all__ = ["ENTRIES", "KERNELS", "LAUNCHES", "SQRT_DIGITS", "constants_text",
+__all__ = ["ADD_GROUP_MAX_N", "ENTRIES", "KERNELS", "LAUNCHES",
+           "LAUNCHES_BY_ENTRY", "SQRT_BITS", "SQRT_DIGITS", "SQRT_PAIR_MAX_N",
+           "add_uses_group", "constants_text", "sqrt_uses_pair",
            "launches_into", "reset_launches", "warm_entries", "write_constants",
            "fq_mul", "fq_mul_plain", "g1_add", "g1_add_plain",
            "g1_add_scan", "g1_add_scan_plain",
@@ -98,14 +108,18 @@ _COUNT_INTO = threading.local()    # a thread's own counts (`launches_into`)
 CSRC = aot.CSRC
 
 # each source's C entries (`cp_<entry>`)
-ENTRIES = {"fq_mul": ("fq_mul",), "g1_add": ("g1_add", "g1_add_scan"),
+ENTRIES = {"fq_mul": ("fq_mul",),
+           "g1_add": ("g1_add", "g1_add_scan", "g1_add_group",
+                      "g1_add_scan_group"),
            "g1_fold_madd": ("g1_fold_madd",),
            "g1_suffix_weighted": ("g1_suffix_weighted",
                                   "g1_suffix_weighted_tree"),
-           "g1_fold_packed": ("g1_fold_packed",), "g1_sqrt": ("g1_sqrt",),
+           "g1_fold_packed": ("g1_fold_packed",),
+           "g1_sqrt": ("g1_sqrt", "g1_sqrt_pair"),
            "g1_fold_rows": ("g1_fold_rows",),
            "g1_ladder": ("g1_batch_mul", "g1_batch_mul_each", "g1_fold"),
            "g1_horner": ("g1_horner",)}
+LAUNCHES_BY_ENTRY = {e: 0 for es in ENTRIES.values() for e in es}
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -113,11 +127,14 @@ _ARGTYPES = {
     "fq_mul": [_P, _I64, _P, _I64, _P, _I64, _P],
     "g1_add": [_P] * 9 + [_I64, _P],
     "g1_add_scan": [_P] * 4 + [_I64, _I64] + [_P] * 4,
+    "g1_add_group": [_P] * 9 + [_I64, _P],
+    "g1_add_scan_group": [_P] * 4 + [_I64, _I64] + [_P] * 4,
     "g1_fold_madd": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64] + [_P] * 5,
     "g1_suffix_weighted": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
     "g1_suffix_weighted_tree": [_P, _P, _P, ctypes.c_int, _I64] + [_P] * 7,
     "g1_fold_packed": [_P, _P, _P, _P, _I64, ctypes.c_int, _I64] + [_P] * 5,
     "g1_sqrt": [_P, _I64, _P, _P],
+    "g1_sqrt_pair": [_P, _I64, _P, _P],
     "g1_fold_rows": [_P, _P, _P, ctypes.c_int, _I64, _P, _P, _P, _P],
     "g1_batch_mul": [_P] * 7 + [_I64, _P],
     "g1_batch_mul_each": [_P] * 7 + [_I64, _P],
@@ -135,6 +152,9 @@ def _sqrt_digits() -> tuple[int, ...]:
 
 
 SQRT_DIGITS = _sqrt_digits()
+# (q+1)/4 as bits, least significant first: the pair entry's chain
+SQRT_BITS = tuple((((Q + 1) // 4) >> i) & 1
+                  for i in range(((Q + 1) // 4).bit_length()))
 
 
 def source_of(name: str) -> str:
@@ -146,6 +166,8 @@ def reset_launches() -> None:
     with _LAUNCHES_LOCK:
         for k in KERNELS:
             LAUNCHES[k] = 0
+        for e in LAUNCHES_BY_ENTRY:
+            LAUNCHES_BY_ENTRY[e] = 0
 
 
 @contextlib.contextmanager
@@ -173,6 +195,7 @@ def constants_text() -> str:
     """`sqrt_constants.h` for g1_sqrt.cuh, from the port's constants (a
     build input: the kernel store's key hashes this text)."""
     digits = ", ".join(map(str, SQRT_DIGITS))
+    bits = ", ".join(map(str, SQRT_BITS))
     return f"""\
 // generated by curdleproofs_tpu_torch/ops/kernels.py; do not edit
 #pragma once
@@ -183,6 +206,9 @@ CC_CONST const uint32_t B_MONT[12] = {{{_u32s(FQ.to_mont(CURVE_B), 12)}}};
 // (q+1)/4 as two-bit digits, most significant first
 constexpr int SQRT_NDIGITS = {len(SQRT_DIGITS)};
 CC_CONST const uint8_t SQRT_DIGITS[SQRT_NDIGITS] = {{{digits}}};
+// (q+1)/4 as bits, least significant first
+constexpr int SQRT_NBITS = {len(SQRT_BITS)};
+CC_CONST const uint8_t SQRT_BITS[SQRT_NBITS] = {{{bits}}};
 }}  // namespace cc
 """
 
@@ -223,8 +249,10 @@ def _lib(source: str, entry: str):
 
 def _launch(name: str, device: torch.device, *args, entry=None) -> None:
     """Launch C entry `cp_<entry>` (default: the kernel's own source's) of
-    the kernel's source and count it under `name`."""
-    fn = _lib(source_of(name), entry or source_of(name))
+    the kernel's source and count it under `name` (and under the entry in
+    `LAUNCHES_BY_ENTRY`)."""
+    entry = entry or source_of(name)
+    fn = _lib(source_of(name), entry)
     with torch.cuda.device(device):
         rc = fn(*args, torch.cuda.current_stream(device).cuda_stream)
     if rc != 0:
@@ -234,6 +262,7 @@ def _launch(name: str, device: torch.device, *args, entry=None) -> None:
     with _LAUNCHES_LOCK:
         if counts is None:
             LAUNCHES[name] += 1
+            LAUNCHES_BY_ENTRY[entry] += 1
         else:
             counts[name] = counts.get(name, 0) + 1
 
@@ -291,17 +320,40 @@ def g1_add_plain(p: PointsXYZ, q: PointsXYZ) -> PointsXYZ:
     return PointsXYZ(*(c.int() for c in r))
 
 
-def g1_add(p: PointsXYZ, q: PointsXYZ) -> PointsXYZ:
-    """Complete add of [24, *batch] point batches (broadcasting)."""
+# g1_add.cu's group entries (8 lanes a point) serve launches of up to this
+# many lanes, the one-thread entries wider ones: the widest width of the
+# sweep at which the group entries beat the one-thread ones, in both the
+# flat and the scan form, on an H100 (`kernel_probe.py add`: 2.5x faster
+# at 32-512 lanes, 1.2x at 8192, 1.5x slower at 16,384; PERF.md).  The
+# protocol's 32-512 lanes go to the groups; the 626k MSM's 1,835,520
+# slots, its reduction's 32,768 chunks and the table's 262,144 multiples
+# to one thread a lane.
+ADD_GROUP_MAX_N = 8192
+
+
+def add_uses_group(n: int) -> bool:
+    """Whether `g1_add` and `g1_add_scan` send an n-lane launch to the group
+    entries."""
+    return n <= ADD_GROUP_MAX_N
+
+
+def g1_add(p: PointsXYZ, q: PointsXYZ, group: bool | None = None
+           ) -> PointsXYZ:
+    """Complete add of [24, *batch] point batches (broadcasting).  On the
+    card the launch goes to the group entry where `add_uses_group` says so,
+    else to the one-thread entry (the same words); `group` forces one."""
     if _on_cpu(*p, *q):
         return g1_add_plain(p, q)
     batch = broadcast_shapes(*(c.shape[1:] for c in (*p, *q)))
     ins = [c.expand(L, *batch).reshape(L, -1).contiguous() for c in (*p, *q)]
     n = ins[0].shape[1]
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    if group is None:
+        group = add_uses_group(n)
     if n:
         _launch("g1_add", ins[0].device,
-                *(t.data_ptr() for t in (*ins, *outs)), n)
+                *(t.data_ptr() for t in (*ins, *outs)), n,
+                entry="g1_add_group" if group else "g1_add")
     return PointsXYZ(*(o.reshape(L, *batch) for o in outs))
 
 
@@ -318,10 +370,12 @@ def g1_add_scan_plain(v: PointsXYZ, key: torch.Tensor,
     return PointsXYZ(*(torch.where(mask, a, b) for a, b in zip(s, v)))
 
 
-def g1_add_scan(v: PointsXYZ, key: torch.Tensor, stride: int) -> PointsXYZ:
+def g1_add_scan(v: PointsXYZ, key: torch.Tensor, stride: int,
+                group: bool | None = None) -> PointsXYZ:
     """`g1_add_scan_plain` in one launch of g1_add.cu's scan entry, which
     reads the partner by index, compares the keys on the card and writes out
-    of place; counted under `g1_add`."""
+    of place; counted under `g1_add`.  The entry is routed as `g1_add`'s
+    (`add_uses_group`; `group` forces one)."""
     if _on_cpu(*v):
         return g1_add_scan_plain(v, key, stride)
     n = key.shape[0] if key.ndim == 1 else -1
@@ -332,9 +386,12 @@ def g1_add_scan(v: PointsXYZ, key: torch.Tensor, stride: int) -> PointsXYZ:
     ins = [c.contiguous() for c in v]
     key = key.contiguous()
     outs = [torch.empty_like(ins[0]) for _ in range(3)]
+    if group is None:
+        group = add_uses_group(n)
     if n:
         _launch("g1_add", key.device, *(t.data_ptr() for t in (*ins, key)),
-                stride, n, *(o.data_ptr() for o in outs), entry="g1_add_scan")
+                stride, n, *(o.data_ptr() for o in outs),
+                entry="g1_add_scan_group" if group else "g1_add_scan")
     return PointsXYZ(*outs)
 
 
@@ -540,9 +597,25 @@ def g1_sqrt_plain(pxp: torch.Tensor) -> torch.Tensor:
     return acc.int()
 
 
-def g1_sqrt(pxp: torch.Tensor) -> torch.Tensor:
+# g1_sqrt.cu's pair entry (two lanes a point) serves launches of up to this
+# many points, the one-thread entry wider ones: the widest width of the
+# sweep at which the pair beat one thread on an H100 (`kernel_probe.py
+# sqrt`: 26% faster from 64 to 8192 points, 1% slower at 16,384; PERF.md).
+# The protocol's fresh bases (64-768 points) go to the pair, the 626k
+# MSM's 655,360 to one thread a point.
+SQRT_PAIR_MAX_N = 8192
+
+
+def sqrt_uses_pair(n: int) -> bool:
+    """Whether `g1_sqrt` sends an n-point launch to the pair entry."""
+    return n <= SQRT_PAIR_MAX_N
+
+
+def g1_sqrt(pxp: torch.Tensor, pair: bool | None = None) -> torch.Tensor:
     """y-candidates of packed x [12, n] (see `g1_sqrt_plain`); the caller
-    fixes the sign and the dead lanes."""
+    fixes the sign and the dead lanes.  On the card the launch goes to the
+    pair entry where `sqrt_uses_pair` says so, else to the one-thread entry
+    (the same words); `pair` forces one."""
     if _on_cpu(pxp):
         return g1_sqrt_plain(pxp)
     if pxp.ndim != 2 or pxp.shape[0] != L // 2:
@@ -550,8 +623,11 @@ def g1_sqrt(pxp: torch.Tensor) -> torch.Tensor:
     pxp = pxp.contiguous()
     n = pxp.shape[1]
     out = torch.empty((L, n), dtype=torch.int32, device=pxp.device)
+    if pair is None:
+        pair = sqrt_uses_pair(n)
     if n:
-        _launch("g1_sqrt", pxp.device, pxp.data_ptr(), n, out.data_ptr())
+        _launch("g1_sqrt", pxp.device, pxp.data_ptr(), n, out.data_ptr(),
+                entry="g1_sqrt_pair" if pair else "g1_sqrt")
     return out
 
 
@@ -814,12 +890,14 @@ def warm_entries(device, times: dict | None = None) -> None:
 
     p = PointsXYZ(z(L, 1), z(L, 1), z(L, 1))
     ext = (z(L // 2, 3), z(L // 2, 3), z(3))
+    p2 = PointsXYZ(z(L, 2), z(L, 2), z(L, 2))
+    key2 = torch.zeros(2, dtype=torch.int64, device=dev)
     calls = [
         ("fq_mul", lambda: fq_mul(p.x, p.y)),
-        ("g1_add", lambda: g1_add(p, p)),
-        ("g1_add_scan", lambda: g1_add_scan(
-            PointsXYZ(z(L, 2), z(L, 2), z(L, 2)),
-            torch.zeros(2, dtype=torch.int64, device=dev), 1)),
+        ("g1_add", lambda: g1_add(p, p, group=False)),
+        ("g1_add_scan", lambda: g1_add_scan(p2, key2, 1, group=False)),
+        ("g1_add_group", lambda: g1_add(p, p, group=True)),
+        ("g1_add_scan_group", lambda: g1_add_scan(p2, key2, 1, group=True)),
         ("g1_fold_madd", lambda: g1_fold_madd(*ext, z(8, 1))),
         ("g1_fold_packed", lambda: g1_fold_packed(*ext, z(8, 1))),
         ("g1_suffix_weighted", lambda: g1_suffix_weighted(
@@ -829,7 +907,8 @@ def warm_entries(device, times: dict | None = None) -> None:
             z(L, 8, 1), z(L, 8, 1), z(L, 8, 1))),
         ("g1_suffix_weighted_tree Cb=16", lambda: g1_suffix_weighted_tree(
             z(L, 16, 1), z(L, 16, 1), z(L, 16, 1))),
-        ("g1_sqrt", lambda: g1_sqrt(z(L // 2, 1))),
+        ("g1_sqrt", lambda: g1_sqrt(z(L // 2, 1), pair=False)),
+        ("g1_sqrt_pair", lambda: g1_sqrt(z(L // 2, 1), pair=True)),
         ("g1_fold_rows", lambda: g1_fold_rows(z(L, 1, 1), z(L, 1, 1),
                                               z(L, 1, 1))),
         ("g1_batch_mul", lambda: g1_ladder(p, words(8))),

@@ -3,6 +3,9 @@
     python curdleproofs_tpu_torch/tools/kernel_probe.py trace [--tree DIR]
     python curdleproofs_tpu_torch/tools/kernel_probe.py suffix
     python curdleproofs_tpu_torch/tools/kernel_probe.py fold [--tree DIR]
+    python curdleproofs_tpu_torch/tools/kernel_probe.py sqrt
+    python curdleproofs_tpu_torch/tools/kernel_probe.py add
+    python curdleproofs_tpu_torch/tools/kernel_probe.py horner-g
 
 `trace`: the l = 124 Whisk shuffle proof of `StdRng.seed_from_u64(0)` (the
 golden 4496 bytes, checked) on the card, after one untimed warm-up prove:
@@ -26,13 +29,25 @@ the kernel store recorded them), and the plan's row kinds (`fold_row_kinds`).  W
 `--tree`, one process a tree, taken in turns, times two trees' kernels on
 one card.
 
-Each prints one JSON line; `nvidia-smi`'s name and power limit come first.
+`sqrt`: g1_sqrt's one-thread and pair entries over a sweep of widths
+(SWEEP_SQRT: 64 to 2^17 points, the x of 256 random points tiled), each
+timed with `graph_ms` in turns (one thread, pair, pair, one thread), both
+outputs equal: the crossing that `kernels.SQRT_PAIR_MAX_N` is set from.
 
-`HornerVariant` and `horner_g_trial` (run by `chip_smoke.py` phase 2):
-`csrc/g1_horner.cu` built with another `HORNER_G` (lanes a relation) into
-a directory of its own, nvcc started in the background, then timed against
-the kernel store's g1_horner in turns (kernel, variant, variant, kernel),
-each with `graph_ms`, on the same window sums, both outputs equal.
+`add`: g1_add's flat and scan entries, one thread a lane against a group
+of 8 lanes a point, over SWEEP_ADD (32 to 2^16 lanes, general-z sums of
+random points; the scan step with one key, so every lane but the last
+adds), in turns as `sqrt`, the outputs equal: the crossing that
+`kernels.ADD_GROUP_MAX_N` is set from.
+
+`horner-g`: the G trial of g1_horner (`HornerVariant`, `horner_g_trial`):
+`csrc/g1_horner.cu` built with the other `HORNER_G` of HORNER_G_TRIAL
+(lanes a relation) into a directory of its own, then timed against the
+kernel store's g1_horner in turns (kernel, variant, variant, kernel),
+each with `graph_ms`, on the same window sums (general-z sums of random
+points at HORNER_G_RELS relations), both outputs equal.
+
+Each prints one JSON line; `nvidia-smi`'s name and power limit come first.
 """
 
 from __future__ import annotations
@@ -301,8 +316,124 @@ def fold_probe() -> dict:
                            "row_kinds": fold_row_kinds(*ext, plan)}}
 
 
+def _general_points(n: int, dev, seed: int):
+    """[24, n] x3 general-z Montgomery points on `dev`: sums of 256 random
+    point pairs (`g1_add` on the card), tiled."""
+    from curdleproofs_tpu_torch.host.rng import StdRng
+    from curdleproofs_tpu_torch.ops import kernels as K
+    from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ, points_to_device
+
+    rng = StdRng.seed_from_u64(seed)
+    a = points_to_device([rng.rand_g1() for _ in range(256)], dev)
+    b = points_to_device([rng.rand_g1() for _ in range(256)], dev)
+    p = K.g1_add(a, b)
+    idx = torch.arange(n, device=dev) % 256
+    return PointsXYZ(*(c[:, idx].contiguous() for c in p))
+
+
+def _in_turns(fns: dict, order) -> dict:
+    """`graph_ms` of each of `fns` (name -> call) in the given order: a
+    list of ms a name."""
+    ms = {k: [] for k in fns}
+    for k in order:
+        ms[k].append(graph_ms(fns[k]))
+    return ms
+
+
+def _crossing(rows, key, old, new) -> int | None:
+    """The widest `key` up to which `new` was faster than `old` (the sum of
+    its turns) at every width of the sweep; None where it never was."""
+    last = None
+    for r in rows:
+        if sum(r[new]) >= sum(r[old]):
+            break
+        last = r[key]
+    return last
+
+
+SWEEP_SQRT = (64, 128, 256, 512, 768, 1024, 2048, 4096, 8192, 16384, 32768,
+              65536, 131072)
+
+
+def sqrt_sweep() -> dict:
+    from curdleproofs_tpu_torch.host import native
+    from curdleproofs_tpu_torch.host.rng import StdRng
+    from curdleproofs_tpu_torch.ops import aot
+    from curdleproofs_tpu_torch.ops import kernels as K
+    from curdleproofs_tpu_torch.ops import msm_device as md
+
+    dev = torch.device("cuda")
+    reports = aot.export()
+    rng = StdRng.seed_from_u64(6)
+    pts = [rng.rand_g1() for _ in range(256)]
+    rows = []
+    for n in SWEEP_SQRT:
+        px, _ = native.export_mont_x([pts[i % 256] for i in range(n)], n)
+        pxp = md.u32_to_tensor(px, dev)
+        if not torch.equal(K.g1_sqrt(pxp, pair=False),
+                           K.g1_sqrt(pxp, pair=True)):
+            raise AssertionError(f"g1_sqrt's entries differ at n = {n}")
+        ms = _in_turns({"one_ms": lambda: K.g1_sqrt(pxp, pair=False),
+                        "pair_ms": lambda: K.g1_sqrt(pxp, pair=True)},
+                       ("one_ms", "pair_ms", "pair_ms", "one_ms"))
+        rows.append({"n": n, **ms,
+                     "routed": "pair" if K.sqrt_uses_pair(n) else "one"})
+    rep = reports["g1_sqrt"]["ptxas"]
+    return {"sqrt_sweep": rows,
+            "pair_faster_up_to": _crossing(rows, "n", "one_ms", "pair_ms"),
+            "ptxas": {e: K.ptxas_usage(rep, e + "_kernel")
+                      for e in ("g1_sqrt", "g1_sqrt_pair")}}
+
+
+SWEEP_ADD = (32, 64, 128, 256, 512, 1024, 2048, 4096, 8192, 16384, 32768,
+             65536)
+
+
+def add_sweep() -> dict:
+    from curdleproofs_tpu_torch.ops import aot
+    from curdleproofs_tpu_torch.ops import kernels as K
+    from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ
+
+    dev = torch.device("cuda")
+    reports = aot.export()
+    big = SWEEP_ADD[-1]
+    p_all = _general_points(big, dev, 7)
+    q_all = _general_points(big, dev, 8)
+    rows = []
+    for n in SWEEP_ADD:
+        p, q = (PointsXYZ(*(c[:, :n].contiguous() for c in v))
+                for v in (p_all, q_all))
+        key = torch.zeros(n, dtype=torch.int64, device=dev)
+        calls = {
+            "one_ms": lambda: K.g1_add(p, q, group=False),
+            "group_ms": lambda: K.g1_add(p, q, group=True),
+            "scan_one_ms": lambda: K.g1_add_scan(p, key, 1, group=False),
+            "scan_group_ms": lambda: K.g1_add_scan(p, key, 1, group=True)}
+        for a, b in (("one_ms", "group_ms"), ("scan_one_ms", "scan_group_ms")):
+            if not all(torch.equal(x, y) for x, y in
+                       zip(calls[a](), calls[b]())):
+                raise AssertionError(f"g1_add's {a} and {b} entries differ "
+                                     f"at n = {n}")
+        ms = _in_turns(calls, ("one_ms", "group_ms", "scan_one_ms",
+                               "scan_group_ms", "scan_group_ms",
+                               "scan_one_ms", "group_ms", "one_ms"))
+        rows.append({"n": n, **ms,
+                     "routed": "group" if K.add_uses_group(n) else "one"})
+    flat = _crossing(rows, "n", "one_ms", "group_ms")
+    scan = _crossing(rows, "n", "scan_one_ms", "scan_group_ms")
+    rep = reports["g1_add"]["ptxas"]
+    return {"add_sweep": rows, "group_faster_up_to": {"flat": flat,
+                                                      "scan": scan},
+            "ptxas": {e: K.ptxas_usage(rep, e + "_kernel")
+                      for e in ("g1_add", "g1_add_scan", "g1_add_group",
+                                "g1_add_scan_group")}}
+
+
 _HORNER_G = re.compile(r"constexpr int HORNER_G = (\d+);")
 HORNER_G_TRIAL = (4, 8)   # the lanes a relation the G trial sets apart
+# g1_horner's widths: a same-msm round's relations (6 a proof) in the
+# batched prover's table mode at B = 256 and its slot mode at B = 16
+HORNER_G_RELS = (1536, 96)
 
 
 def horner_g() -> int:
@@ -327,7 +458,7 @@ class HornerVariant:
         g = self.g = next(g for g in HORNER_G_TRIAL if g != self.shipped_g)
         d = pathlib.Path(directory)
         d.mkdir(parents=True, exist_ok=True)
-        for f in ("fq_cc.cuh", "g1_horner.cuh"):
+        for f in ("fq_cc.cuh", "g1_group.cuh", "g1_horner.cuh"):
             shutil.copy(aot.CSRC / f, d / f)
         (d / "g1_horner.cu").write_text(
             _HORNER_G.sub(f"constexpr int HORNER_G = {g};", src))
@@ -395,9 +526,24 @@ def horner_g_trial(variant: HornerVariant, window_sums) -> dict:
             "variant_build_s": build_s}
 
 
+def horner_g_probe() -> dict:
+    """The G trial on general-z window sums at HORNER_G_RELS relations."""
+    from curdleproofs_tpu_torch.ops import aot
+    from curdleproofs_tpu_torch.ops.g1_ops import PointsXYZ
+
+    dev = torch.device("cuda")
+    aot.export()
+    p = _general_points(max(HORNER_G_RELS) * 64, dev, 9)
+    sums = [PointsXYZ(*(c[:, :n_rel * 64].reshape(24, n_rel, 64)
+                        for c in p)) for n_rel in HORNER_G_RELS]
+    return {"horner_g_trial": horner_g_trial(
+        HornerVariant(aot.aot_dir() / "g1_horner_trial"), sums)}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("what", choices=("trace", "suffix", "fold"))
+    ap.add_argument("what", choices=("trace", "suffix", "fold", "sqrt", "add",
+                                     "horner-g"))
     ap.add_argument("--tree", type=pathlib.Path,
                     default=pathlib.Path(__file__).resolve().parents[2])
     args = ap.parse_args()
@@ -407,8 +553,9 @@ def main() -> int:
     tree = args.tree.resolve()
     sys.path.insert(0, str(tree))
     print(card_line(), flush=True)
-    out = (trace(tree) if args.what == "trace" else suffix_sweep()
-           if args.what == "suffix" else fold_probe())
+    out = {"trace": lambda: trace(tree), "suffix": suffix_sweep,
+           "fold": fold_probe, "sqrt": sqrt_sweep, "add": add_sweep,
+           "horner-g": horner_g_probe}[args.what]()
     print(json.dumps(out))
     return 0
 

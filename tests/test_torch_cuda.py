@@ -447,6 +447,80 @@ def test_g1_sqrt_kernel_widths(n):
     assert torch.equal(got, kernels.g1_sqrt_plain(pxp))
 
 
+@pytest.mark.parametrize("n", [1, 37, 128, 768, 4099])
+def test_g1_sqrt_both_entries(n):
+    """Both entries of g1_sqrt.cu (one thread a point, a pair of lanes a
+    point) against the plain version, at widths with a ragged warp and
+    block; the routed wrapper takes the entry `sqrt_uses_pair` names, and
+    each launch counts under `g1_sqrt` and its entry."""
+    dev = _card()
+    rng = StdRng.seed_from_u64(23)
+    pts = [G1.infinity()] + [rng.rand_g1() for _ in range(min(n, 256) - 1)]
+    pts = [pts[i % len(pts)] for i in range(n)]
+    px, _ = native.export_mont_x(pts, n)
+    pxp = md.u32_to_tensor(px, dev)
+    want = kernels.g1_sqrt_plain(pxp)
+    for pair in (False, True, None):
+        entry = "g1_sqrt_pair" if (kernels.sqrt_uses_pair(n) if pair is None
+                                   else pair) else "g1_sqrt"
+        before = dict(kernels.LAUNCHES_BY_ENTRY)
+        n_before = kernels.LAUNCHES["g1_sqrt"]
+        got = kernels.g1_sqrt(pxp, pair=pair)
+        assert kernels.LAUNCHES["g1_sqrt"] == n_before + 1
+        assert {e: v - before[e] for e, v in kernels.LAUNCHES_BY_ENTRY.items()
+                if v != before[e]} == {entry: 1}
+        assert torch.equal(got, want), pair
+
+
+@pytest.mark.parametrize("n", [1, 37, 512, 4099])
+def test_g1_add_both_entries(n):
+    """Both designs of g1_add.cu's flat and scan entries (one thread a
+    lane, a group of 8 lanes a point) against the plain versions on the
+    complete add's special cases (infinities, P + P, P + -P, all-zero
+    rows) at ragged widths; the scan step on alternating keys at strides
+    1 and 2 and past the width; the routed wrappers take the entries
+    `add_uses_group` names."""
+    dev = _card()
+    p, q = _adversarial_pairs(n)
+    dp, dq = (PointsXYZ(*(c.to(dev) for c in v)) for v in (p, q))
+    want = kernels.g1_add_plain(p, q)
+    key = (torch.arange(n) % 2).long()
+    routed = kernels.add_uses_group(n)
+    for group in (False, True, None):
+        grp = routed if group is None else group
+        before = dict(kernels.LAUNCHES_BY_ENTRY)
+        got = kernels.g1_add(dp, dq, group=group)
+        assert {e: v - before[e] for e, v in kernels.LAUNCHES_BY_ENTRY.items()
+                if v != before[e]} == {
+            "g1_add_group" if grp else "g1_add": 1}
+        assert all(torch.equal(a.cpu(), b) for a, b in zip(got, want)), group
+        for stride in (1, 2, n + 1):
+            before = dict(kernels.LAUNCHES_BY_ENTRY)
+            got = kernels.g1_add_scan(dp, key.to(dev), stride, group=group)
+            assert {e: v - before[e]
+                    for e, v in kernels.LAUNCHES_BY_ENTRY.items()
+                    if v != before[e]} == {
+                "g1_add_scan_group" if grp else "g1_add_scan": 1}
+            sw = kernels.g1_add_scan_plain(p, key, stride)
+            assert all(torch.equal(a.cpu(), b) for a, b in zip(got, sw)), \
+                (group, stride)
+
+
+def test_scan_step_group_entry_on_a_slot_plan():
+    """The scan step's group entry, round by round over a real plan's
+    merge, array-equal to the one-thread entry and the plain version."""
+    dev = _card()
+    acc, sp = _scan_inputs(dev)
+    v, stride = acc, 1
+    while stride < sp.kmax:
+        got = kernels.g1_add_scan(v, sp.slot_gkey, stride, group=True)
+        one = kernels.g1_add_scan(v, sp.slot_gkey, stride, group=False)
+        want = kernels.g1_add_scan_plain(v, sp.slot_gkey, stride)
+        assert all(torch.equal(a, b) and torch.equal(a, c)
+                   for a, b, c in zip(got, one, want))
+        v, stride = got, stride * 2
+
+
 def _suffix_buckets(cb: int, wg: int) -> list[torch.Tensor]:
     """[24, Cb, WG] buckets on the CPU (bucket j of lane l at column
     j * WG + l), general z, with special lanes: every bucket at infinity;
@@ -909,9 +983,9 @@ def test_batch_verify_on_a_logical_grid():
 
 
 # the warm-up's launches of every C entry, counted by kernel name
-WARM_LAUNCHES = {"fq_mul": 1, "g1_add": 2, "g1_fold_madd": 1,
+WARM_LAUNCHES = {"fq_mul": 1, "g1_add": 4, "g1_fold_madd": 1,
                  "g1_fold_packed": 1, "g1_suffix_weighted": 1,
-                 "g1_suffix_weighted_tree": 2, "g1_sqrt": 1,
+                 "g1_suffix_weighted_tree": 2, "g1_sqrt": 2,
                  "g1_fold_rows": 1, "g1_ladder": 3, "g1_horner": 1}
 
 
@@ -933,7 +1007,7 @@ def test_store_hit_launches_every_entry(monkeypatch):
     torch.cuda.synchronize()
     assert apart == WARM_LAUNCHES
     assert kernels.LAUNCHES == before
-    assert len(times) == 14 and all(ms > 0 for ms in times.values())
+    assert len(times) == 17 and all(ms > 0 for ms in times.values())
     for s in aot.SOURCES:
         rec = aot.maybe_load(s)
         assert rec is not None and rec["built"] is False, s

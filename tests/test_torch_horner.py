@@ -23,7 +23,8 @@ version, `csrc/g1_horner.cuh`) on the CPU, at n_rel = 8 relations of the
   `g1_add` calls, then `_leave_montgomery`), and a grouped MSM dispatch on
   the CPU, slot and table mode, whose decoded points equal the host MSM's;
 - `kernel_probe.HornerVariant`, the G trial's build of the source with
-  the other HORNER_G, under a stand-in compiler.
+  the other HORNER_G (`kernel_probe.py horner-g`), under a stand-in
+  compiler.
 
 Tolerance: exact (canonical residues)."""
 
@@ -332,7 +333,7 @@ def _stand_in_nvcc(tmp_path, monkeypatch, rc: int) -> pathlib.Path:
 
 
 def test_horner_variant_source(tmp_path, monkeypatch):
-    """`kernel_probe.HornerVariant` (`chip_smoke.py`'s G trial) writes
+    """`kernel_probe.HornerVariant` (`kernel_probe.py horner-g`) writes
     g1_horner.cu with the other HORNER_G of (4, 8) and no other change,
     beside the headers it includes, and runs nvcc on it with the kernel
     store's flags (a stand-in compiler here)."""
@@ -347,7 +348,7 @@ def test_horner_variant_source(tmp_path, monkeypatch):
     line = "constexpr int HORNER_G = {};"
     assert (tmp_path / "v" / "g1_horner.cu").read_text() == src.replace(
         line.format(v.shipped_g), line.format(v.g))
-    for h in ("fq_cc.cuh", "g1_horner.cuh"):
+    for h in ("fq_cc.cuh", "g1_group.cuh", "g1_horner.cuh"):
         assert (tmp_path / "v" / h).read_bytes() == (K.CSRC / h).read_bytes()
     args = (home / "args").read_text().split()
     assert args[:len(aot.NVCC_FLAGS)] == aot.NVCC_FLAGS
