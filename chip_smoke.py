@@ -3,7 +3,12 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; nothing is caught):
-1. the card: name and power limit as nvidia-smi reports them;
+1. the card: name and power limit as nvidia-smi reports them; the committed
+   tune table (`curdleproofs_tpu_torch/ops/msm_tune.json`, in force for the
+   whole run unless a phase points `CURDLEPROOFS_TUNE` at an absent file for
+   its untuned baseline): its families, each family's c and walls, and its
+   stamp; the window widths `pick_params` takes from it, from which every
+   path's expected kernels are derived (`expected_kernels`);
 2. build the nine CUDA sources from `curdleproofs_tpu_torch/csrc/` into
    an empty kernel store of this run's own (`ops/aot.py`; a temporary
    `CURDLEPROOFS_AOT_DIR`, so the build is a store miss, with each source's
@@ -48,12 +53,12 @@ Phases (any failure exits non-zero; nothing is caught):
    wall time and bytes (after one untimed warm-up upload, three timed
    uploads each way, in turns), and the same at a protocol MSM's 64, 128,
    256 and 768 points (whether the compressed upload pays there);
-3. the MSM at real size: `msm_device` at n = 2^16 (c = 8) and n = 626,000
-   (c = 16, batch verification's deduped MSM at B = 1024, l = 252), each
-   equal to the native host MSM, with per-stage device times and peak
-   memory, and one fq_mul launch (leave-Montgomery; the bases were made
-   resident before); then the 2^16 MSM again with the full-add fold
-   (`madd=False`, the path of g1_fold_packed);
+3. the MSM at real size: `msm_device` at n = 2^16 (c from the committed
+   table) and n = 626,000 (c = 16, batch verification's deduped MSM at
+   B = 1024, l = 252), each equal to the native host MSM, with per-stage
+   device times and peak memory, and one fq_mul launch (leave-Montgomery;
+   the bases were made resident before); then the 2^16 MSM again with the
+   full-add fold (`madd=False`, the path of g1_fold_packed);
 4. the protocol on `TorchBackend()`: the Whisk shuffle proof at l = 124 from
    `StdRng.seed_from_u64(0)` must equal the golden 4496-byte vector, verify,
    and fail with a tampered post-tracker; then prove and verify at l = 252;
@@ -66,9 +71,11 @@ Phases (any failure exits non-zero; nothing is caught):
 6. batch verification at l = 252, B = 256 (shared R, S; fresh T, U, M per
    proof, as bench.py builds it): `batch_verify(..., stream_chunk=64)`
    through the device stream accepts it and rejects one swapped instance,
-   and the one-MSM `batch_verify` gives the same verdicts.  No tuning
-   table is shipped for the card, so the streamed run measures the untuned
-   50/50 split between the device stream and the host engine;
+   and the one-MSM `batch_verify` gives the same verdicts.  The streamed
+   run goes in turns at the split the committed table plans, at the untuned
+   50/50 (`CURDLEPROOFS_TUNE` naming an absent file) and at 1.0 forced,
+   each with its wall, `last_split` and `last_stats`; every setting must
+   give the same verdicts;
 7. the batched prover (`parallel.batch_prove`, one grouped MSM dispatch a
    folding round for the whole batch) on `TorchBackend()`:
    (a) table mode at l = 252, B = 256 (the reference's batched
@@ -102,11 +109,14 @@ Phases (any failure exits non-zero; nothing is caught):
    (b) phase 4's run on the all-device `DeviceBackend` (the reference's
    `TpuBackend`): the golden l = 124 bytes, verify, tamper rejected, l = 252
    proved and verified, the ladder launched on the path;
-   (c) the autotuner (`tools/msm_autotune.py`) at 2^10, 2^12, 2^14 and 2^16
-   into a temporary `CURDLEPROOFS_TUNE` table, every MSM equal to the
-   host's; then phase 4's run on `HybridBackend` untuned (no MSM and no
-   kernel on the card) and on that table (each MSM on the engine
-   `route_to_device` names); the prove and verify walls of every backend;
+   (c) the autotuner (`tools/msm_autotune.py`) at 2^10 and 2^16 into a
+   temporary `CURDLEPROOFS_TUNE` table, every MSM equal to the host's, its
+   entries beside the committed ones (a re-measure; logged, not gated);
+   `route_to_device` at 64-768 points, 2^16 and 626,000, fresh and
+   resident, on the committed table and untuned; then phase 4's run on
+   `HybridBackend` untuned (no MSM and no kernel on the card) and on the
+   committed table (each MSM on the engine `route_to_device` names); the
+   prove and verify walls of every backend;
    (d) `python -m curdleproofs_tpu_torch` shuffle-prove and shuffle-verify
    in subprocesses under `CURDLEPROOFS_BACKEND=hybrid` and `tpu`, and
    `info` naming the card.
@@ -155,14 +165,20 @@ Phases (any failure exits non-zero; nothing is caught):
    `speed_of_light` at 2^16, `scaling_report` and `multihost_scaling` at
    B = 8, l = 28; each artifact must hold its keys, `match` true and the
    stamps (commit, source sha256, torch version, this card's line).
+12. the examples (`curdleproofs_tpu_torch/examples/`) at their default
+   sizes, in this process on `TorchBackend()`: `whisk_ssle_demo` (l = 124),
+   `chain_sync_demo` (8 blocks at l = 124) and `msm_demo` (2^14 points,
+   then the sharded MSM on a (4, 2) logical grid over the card); any
+   failed assertion fails the run.
 
 Kernel launches are counted for each driven path on its own (zeroed just
 before it, read just after it): the MSMs at 2^16 and 626k, the full-add
 MSM, the protocol run of phase 4 (l = 124 and l = 252 together), the Whisk
 chain, the batch verification, the two batched proves, phase 4's run on
-`DeviceBackend` and on `HybridBackend` (untuned and tuned), and phase 9's
-sharded MSMs (with and without the full-add switch), mesh batch verification
-and protocol through the grid (g1_sqrt must launch on none). Each path must
+`DeviceBackend` and on `HybridBackend` (untuned and on the committed table),
+phase 9's sharded MSMs (with and without the full-add switch), mesh batch
+verification and protocol through the grid (g1_sqrt must launch on none),
+and phase 12's examples. Each path must
 launch every kernel `EXPECTED` lists for it. g1_fold_rows and g1_add_rows
 have no caller (none in the JAX package either): they are held against
 their plain versions in phase 2 and launch on no path. The kernels' JSON
@@ -211,7 +227,7 @@ COLD_LOGN = 16              # phase 10: the cold processes' MSM, 2^16 points
 GOLDEN = ROOT / "tests" / "golden" / "whisk_shuffle_proof_128.hex"
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 MUL32_PER_FQ_SQR = 468      # 78 + 12 + 144 products (squaring, then reduction)
-N_SMALL = 1 << 16           # the c = 8 MSM family, and the kernels' width
+N_SMALL = 1 << 16           # the 2^16 MSM family, and the kernels' width
 CHAIN_BLOCKS = 64           # phase 5: Whisk blocks in the synced chain
 BATCH_ELL, BATCH_B, BATCH_CHUNK = 252, 256, 64   # phase 6
 PROVE_ELL, PROVE_B, PROVE_CHECKED = 252, 256, 8   # phase 7 (a), table mode
@@ -224,8 +240,8 @@ TABLE_PATH = f"batch prove table l={PROVE_ELL} B={PROVE_B}"
 SLOT_PATH = f"batch prove slot l={SLOT_ELL} B={SLOT_B} full-add"
 DEVICE_PATH = f"{MAIN_PATH} on DeviceBackend"
 HYBRID_UNTUNED = f"{MAIN_PATH} on HybridBackend, untuned"
-HYBRID_TUNED = f"{MAIN_PATH} on HybridBackend, autotuned table"
-TUNE_LOGNS = (10, 12, 14, 16)                      # phase 8 (c)
+HYBRID_TUNED = f"{MAIN_PATH} on HybridBackend, committed table"
+TUNE_LOGNS = (10, 16)                              # phase 8 (c)
 # phase 9: (Dp, Dw) logical grids over the one card, at n = 64 and 626k
 SHARD_GRIDS = ((1, 1), (2, 1), (4, 1), (4, 2), (8, 1), (2, 2), (6, 1))
 SHARD_BIG_GRIDS = ((4, 2), (8, 1))
@@ -248,46 +264,82 @@ REPLACES = {
 }
 NO_CALLER = {"g1_fold_rows", "g1_add_rows"}
 BIG_PATH = f"msm n={N_BIG}"
-# the suffix kernel's entries: the tree serves the c = 8 reduction (WG =
-# 512), the chain the c = 16 one (WG = 32,768)
-_MSM8 = {"fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted_tree"}
-_MSM16 = {"fq_mul", "g1_add", "g1_fold_madd", "g1_suffix_weighted"}
-# the kernels each driven path must launch: g1_sqrt wherever the counted
-# window uploads fresh bases (the direct MSMs' bases are resident before
-# their windows open); every MSM below 2^19 points runs c = 8
-EXPECTED = {
-    f"msm n={N_SMALL}": _MSM8,
-    BIG_PATH: _MSM16,
-    FULL_ADD_PATH: _MSM8 - {"g1_fold_madd"} | {"g1_fold_packed"},
-    MAIN_PATH: _MSM8 | {"g1_sqrt"},
-    CHAIN_PATH: _MSM8 | {"g1_sqrt"},
-    BATCH_PATH: _MSM8 | {"g1_sqrt"},
-    # the batched prover: one compressed upload, the table's multiples and
-    # products (table mode), the fold, Horner (one g1_horner a dispatch);
-    # slot mode also the merge's scan steps (checked per stage) and the
-    # c = 4 reduction, n_rel * 64 <= 8192 lanes: the tree entry
-    TABLE_PATH: {"fq_mul", "g1_add", "g1_fold_madd", "g1_sqrt", "g1_horner"},
-    SLOT_PATH: {"fq_mul", "g1_add", "g1_fold_packed", "g1_sqrt",
-                "g1_suffix_weighted_tree", "g1_horner"},
-    # the all-device backend: the MSMs from 8 points, and the ladder for
-    # the commitment's and the grand product's scalar multiplications
-    DEVICE_PATH: _MSM8 | {"g1_sqrt", "g1_ladder"},
-    # HybridBackend: untuned no MSM of a prove reaches the card (all under
-    # 2^16 points); on the table, wherever `route_to_device` says
-    HYBRID_UNTUNED: set(),
-    HYBRID_TUNED: set(),
-    # the sharded MSM: plain uploads (no g1_sqrt), the points-axis reduce's
-    # g1_add; c = 8 below 2^18 points (the tree entry where a cell keeps
-    # all 32 windows, Cb = 8; the chain at Cb = 4, a (4, 2) grid's window
-    # shard), c = 16 at 626k (the chain)
-    SHARD_PATH: _MSM8 | {"g1_suffix_weighted"},
-    SHARD_FULL_ADD_PATH: {"fq_mul", "g1_add", "g1_fold_packed",
+EXAMPLES_PATH = "the three examples at their default sizes on TorchBackend"
+# the protocol's MSMs (8-1374 points at l = 252) and the Whisk chain's (its
+# deduped MSM of ~19k points and the bisection's halves) all take fewer
+# than 2^15 points
+PROTOCOL_MSM_NS = range(8, 1 << 15)
+
+
+def msm_kernels(c: int, madd: bool = True) -> set:
+    """The kernels one device MSM at window width c launches:
+    leave-Montgomery's fq_mul, the merge's g1_add, the fold (the mixed add,
+    or the full add with `madd=False`) and the reduction's suffix entry (the
+    tree for c = 8's [24, 8, 512] buckets, the chain for c = 16's
+    [24, 16, 32768])."""
+    return {"fq_mul", "g1_add", "g1_fold_madd" if madd else "g1_fold_packed",
+            "g1_suffix_weighted_tree" if c == 8 else "g1_suffix_weighted"}
+
+
+def expected_kernels(md, psm) -> dict:
+    """The kernels each driven path must launch.  The window widths come
+    from `pick_params`, which takes the tune table's c for a family it holds
+    (the committed `"cuda"` table), so the sets follow the table: the MSMs at
+    2^16 and 626k, the batch stream's 2^16 family, the protocol's and the
+    chain's MSMs (each of them below 2^15 points).  g1_sqrt wherever the
+    counted window uploads fresh bases (the direct MSMs' bases are resident
+    before their windows open).  The sharded MSM picks c by the reference's
+    rule (`sharded_msm._pick_c`: 8 below 2^18 points, else 16), not by the
+    table."""
+    def c_of(*ns):
+        return {md.pick_params(n).c for n in ns}
+
+    def kernels(cs, madd=True):
+        return set().union(*(msm_kernels(c, madd) for c in cs))
+
+    protocol = kernels(c_of(*PROTOCOL_MSM_NS)) | {"g1_sqrt"}
+    return {
+        f"msm n={N_SMALL}": kernels(c_of(N_SMALL)),
+        BIG_PATH: kernels(c_of(N_BIG)),
+        FULL_ADD_PATH: kernels(c_of(N_SMALL), madd=False),
+        MAIN_PATH: protocol,
+        CHAIN_PATH: protocol,
+        BATCH_PATH: kernels({md.stream_params().c}) | {"g1_sqrt"},
+        # the batched prover: one compressed upload, the table's multiples
+        # and products (table mode), the fold, Horner (one g1_horner a
+        # dispatch); slot mode also the merge's scan steps (checked per
+        # stage) and the c = 4 reduction, n_rel * 64 <= 8192 lanes: the
+        # tree entry
+        TABLE_PATH: {"fq_mul", "g1_add", "g1_fold_madd", "g1_sqrt",
+                     "g1_horner"},
+        SLOT_PATH: {"fq_mul", "g1_add", "g1_fold_packed", "g1_sqrt",
+                    "g1_suffix_weighted_tree", "g1_horner"},
+        # the all-device backend: the MSMs from 8 points, and the ladder for
+        # the commitment's and the grand product's scalar multiplications
+        DEVICE_PATH: protocol | {"g1_ladder"},
+        # HybridBackend: untuned no MSM of a prove reaches the card (all
+        # under 2^16 points); on the table, wherever `route_to_device` says
+        HYBRID_UNTUNED: set(),
+        HYBRID_TUNED: set(),
+        # the sharded MSM: plain uploads (no g1_sqrt), the points-axis
+        # reduce's g1_add; at n = 64 the tree entry where a cell keeps all 32
+        # windows (Cb = 8), the chain at Cb = 4 (a (4, 2) grid's window
+        # shard) and at 626k's c = 16
+        SHARD_PATH: kernels({psm._pick_c(64), psm._pick_c(N_BIG)})
+        | {"g1_suffix_weighted"},
+        SHARD_FULL_ADD_PATH: {"fq_mul", "g1_add", "g1_fold_packed",
+                              "g1_suffix_weighted"},
+        MESH_BATCH_PATH: {"fq_mul", "g1_add", "g1_fold_madd",
                           "g1_suffix_weighted"},
-    MESH_BATCH_PATH: {"fq_mul", "g1_add", "g1_fold_madd",
-                      "g1_suffix_weighted"},
-    MESH_PROTOCOL_PATH: {"fq_mul", "g1_add", "g1_fold_madd",
-                         "g1_suffix_weighted"},
-}
+        MESH_PROTOCOL_PATH: {"fq_mul", "g1_add", "g1_fold_madd",
+                             "g1_suffix_weighted"},
+        # the Whisk demos' MSMs, the MSM demo's 2^14 on one card, its grid's
+        # window shards (the chain) and the demos' fresh uploads
+        EXAMPLES_PATH: protocol | kernels(c_of(1 << 14))
+        | {"g1_suffix_weighted"},
+    }
+
+
 # each kernel's own main path, where it is not the protocol run
 OWN_PATH = {"g1_fold_packed": FULL_ADD_PATH, "g1_suffix_weighted": BIG_PATH,
             "g1_ladder": DEVICE_PATH, "g1_horner": TABLE_PATH}
@@ -369,6 +421,32 @@ def affine_err(got, want, fq_mul) -> int:
                max_abs_err((fq_mul(gy, wz),), (fq_mul(wy, gz),)))
 
 
+@contextlib.contextmanager
+def untuned(msm_tune):
+    """Every reader of the tune table untuned: `CURDLEPROOFS_TUNE` names a
+    file that does not exist."""
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CURDLEPROOFS_TUNE"] = str(pathlib.Path(tmp) / "absent")
+        msm_tune._load_raw.cache_clear()
+        try:
+            yield
+        finally:
+            del os.environ["CURDLEPROOFS_TUNE"]
+            msm_tune._load_raw.cache_clear()
+
+
+@contextlib.contextmanager
+def forced_split(bv, f: float):
+    """Streamed batch verification at the device share f, whatever the cost
+    model plans."""
+    plan = bv.plan_split_fraction
+    bv.plan_split_fraction = lambda *a, **k: f
+    try:
+        yield
+    finally:
+        bv.plan_split_fraction = plan
+
+
 def stage_ms(marks) -> dict:
     """[(stage, event), ...] -> {stage: ms since the previous mark}."""
     return {s: round(marks[i - 1][1].elapsed_time(e), 3)
@@ -409,6 +487,33 @@ def main() -> int:
         WhiskTracker, generate_whisk_shuffle_proof, is_valid_whisk_shuffle_proof,
         is_valid_whisk_shuffle_proofs,
     )
+
+    # -- the committed tune table (`ops/msm_tune.json`): every pick_params,
+    # routing verdict and split below reads it, unless a phase points
+    # CURDLEPROOFS_TUNE elsewhere for its untuned baseline
+    from curdleproofs_tpu_torch.ops import msm_tune
+    from curdleproofs_tpu_torch.parallel import sharded_msm as psm
+
+    tune_table = msm_tune.load_table(dev)
+    stamp = msm_tune.table_stamp()
+    shipped = ROOT / "curdleproofs_tpu_torch" / "ops" / "msm_tune.json"
+    if msm_tune.table_path() != shipped or not tune_table or stamp is None \
+            or any("pending" in e for e in tune_table.values()):
+        raise AssertionError(f"the committed tune table "
+                             f"{msm_tune.table_path()} is missing, unstamped "
+                             f"or holds a pending entry")
+    log("committed tune table: families " + json.dumps({
+        n: {k: e[k] for k in ("c", "device_warm_ms", "fresh_prep_ms",
+                              "host_ms", "losers")}
+        for n, e in sorted(tune_table.items())})
+        + "; stamp " + json.dumps(stamp))
+    EXPECTED = expected_kernels(md, psm)
+    log("window widths from pick_params: " + json.dumps({
+        "msm n=65536": md.pick_params(N_SMALL).c,
+        f"msm n={N_BIG}": md.pick_params(N_BIG).c,
+        "batch stream (2^16 family)": md.stream_params().c,
+        "protocol and chain MSMs": sorted({md.pick_params(n).c
+                                           for n in PROTOCOL_MSM_NS})}))
 
     # -- phase 2: build, then every kernel against its plain version -------
     # the build is the kernel store's export into an empty store (a miss:
@@ -692,7 +797,7 @@ def main() -> int:
     # fold, merge and dense buckets as the pipeline makes them): both
     # suffix entries at its [24, 8, 512], then timed in turns; fq_mul at
     # its leave-Montgomery [24, 3W]
-    p8 = md.pick_params(256)
+    p8 = md.pick_params(256, 8)
     b8 = md.DeviceBases(tiled(256, 11), dev)
     l8 = torch.from_numpy(md._scalars_to_limbs(
         [rnd.randrange(R) for _ in range(256)], p8.n).astype(np.int32)).to(dev)
@@ -1012,36 +1117,66 @@ def main() -> int:
         ev.record()
         marks.append((stage, ev))
 
+    # the streamed runs in turns: the split the committed table plans, the
+    # untuned 50/50 (CURDLEPROOFS_TUNE naming an absent file, which also
+    # untunes the stream's family) and 1.0 forced; the stages of the first
+    # run's dispatches are logged
+    settings = {"planned": contextlib.nullcontext,
+                "untuned": lambda: untuned(msm_tune),
+                "forced 1.0": lambda: forced_split(bv, 1.0)}
+    split_runs = []
     batch_backend = TorchBackend()
     with use_backend(batch_backend):
         torch.cuda.synchronize()
         K.reset_launches()
-        t0 = time.perf_counter()
-        ok_s = bv.batch_verify(crs, instances, proofs, rng,
-                               stream_chunk=BATCH_CHUNK, mark=mark)
-        stream_ms = (time.perf_counter() - t0) * 1e3
-        stats = dict(bv._batch_verify_streamed.last_stats)
-        bad_s = bv.batch_verify(crs, tampered, proofs, rng,
-                                stream_chunk=BATCH_CHUNK)
+        for label in ("planned", "untuned", "forced 1.0", "forced 1.0",
+                      "untuned", "planned"):
+            with settings[label]():
+                t0 = time.perf_counter()
+                ok = bv.batch_verify(crs, instances, proofs, rng,
+                                     stream_chunk=BATCH_CHUNK,
+                                     mark=None if split_runs else mark)
+                wall = (time.perf_counter() - t0) * 1e3
+            split_runs.append({
+                "setting": label, "valid": ok, "wall_ms": wall,
+                "split": bv._batch_verify_streamed.last_split,
+                "stats": dict(bv._batch_verify_streamed.last_stats)})
+        bad_runs = {}
+        for label in ("planned", "untuned"):
+            with settings[label]():
+                bad_runs[label] = bv.batch_verify(crs, tampered, proofs, rng,
+                                                  stream_chunk=BATCH_CHUNK)
         t0 = time.perf_counter()
         ok_1 = bv.batch_verify(crs, instances, proofs, rng)
         one_ms = (time.perf_counter() - t0) * 1e3
         bad_1 = bv.batch_verify(crs, tampered, proofs, rng)
         counted(BATCH_PATH)
-    if (ok_s, bad_s, ok_1, bad_1) != (True, False, True, False):
-        raise AssertionError(f"batch verify verdicts: streamed {ok_s}/"
-                             f"{bad_s}, one-MSM {ok_1}/{bad_1} (valid/"
+    verdicts = ({r["valid"] for r in split_runs}, set(bad_runs.values()),
+                ok_1, bad_1)
+    if verdicts != ({True}, {False}, True, False):
+        raise AssertionError(f"batch verify verdicts: streamed {split_runs} "
+                             f"/ {bad_runs}, one-MSM {ok_1}/{bad_1} (valid/"
                              f"tampered)")
+    for r in split_runs:
+        want = {"untuned": 0.5, "forced 1.0": 1.0}.get(r["setting"])
+        if want is not None and r["split"] != want:
+            raise AssertionError(f"streamed run {r['setting']}: split "
+                                 f"{r['split']}, not {want}")
     batch6 = (crs, instances, tampered, proofs)   # phase 9 (c) reuses it
     starts = [i for i, (s, _) in enumerate(marks) if s == "start"] \
         + [len(marks)]
     dispatches = [stage_ms(marks[a:b]) for a, b in zip(starts, starts[1:])]
-    log(f"{BATCH_PATH}: streamed (chunk {BATCH_CHUNK}) accepted in "
-        f"{stream_ms:.1f} ms, replay {stats['replay_s'] * 1e3:.1f} ms, split "
-        f"{bv._batch_verify_streamed.last_split}, stats {json.dumps(stats)}, "
-        f"tamper rejected; one-MSM accepted in {one_ms:.1f} ms, tamper "
-        f"rejected; proofs made on the host in {gen_s:.1f} s; msm engines "
+    for r in split_runs:
+        log(f"{BATCH_PATH}: streamed (chunk {BATCH_CHUNK}), split "
+            f"{r['setting']} = {r['split']}: accepted in {r['wall_ms']:.1f} "
+            f"ms, stats {json.dumps(r['stats'])}")
+    log(f"{BATCH_PATH}: tamper rejected streamed ({', '.join(bad_runs)}) "
+        f"and one-MSM; one-MSM accepted in {one_ms:.1f} ms; proofs made on "
+        f"the host in {gen_s:.1f} s; msm engines "
         + json.dumps(batch_backend.engine_counts))
+    log("phase 6 record: " + json.dumps({
+        "card": card, "streamed": split_runs, "one_msm_ms": one_ms,
+        "stream_c": md.stream_params().c}))
     for i, st in enumerate(dispatches):
         log(f"  stream dispatch {i}: stages ms {json.dumps(st)}")
 
@@ -1303,7 +1438,6 @@ def main() -> int:
 
     # -- phase 8: the reference's other backends ------------------------------
     from curdleproofs_tpu_torch.ops import msm as ladders
-    from curdleproofs_tpu_torch.ops import msm_tune
     from curdleproofs_tpu_torch.ops.backend import DeviceBackend, HybridBackend
     from curdleproofs_tpu_torch.ops.limbs import ints_to_bits
     from curdleproofs_tpu_torch.tools.msm_autotune import tune
@@ -1403,9 +1537,38 @@ def main() -> int:
     log(f"msm engines on {DEVICE_PATH}: "
         + json.dumps(dbackend.engine_counts))
 
-    # (c) the autotuner into a table of its own, then HybridBackend untuned
-    # and on that table: every MSM where `route_to_device` (or, untuned,
-    # the reference's fallback) puts it
+    # (c) one autotuner pass at TUNE_LOGNS into a table of its own (the tool
+    # stays exercised; its 2^16 entry re-measures the committed one), the
+    # routing verdicts at the protocol's sizes and beyond, then
+    # HybridBackend untuned and on the committed table: every MSM where
+    # `route_to_device` (or, untuned, the reference's fallback) puts it
+    with tempfile.TemporaryDirectory() as tmp:
+        os.environ["CURDLEPROOFS_TUNE"] = str(pathlib.Path(tmp) / "t.json")
+        msm_tune._load_raw.cache_clear()
+        try:
+            t0 = time.perf_counter()
+            tuned = tune(TUNE_LOGNS, dev, log=log)
+            tune_s = time.perf_counter() - t0
+        finally:
+            del os.environ["CURDLEPROOFS_TUNE"]
+            msm_tune._load_raw.cache_clear()
+    if sorted(tuned) != [1 << e for e in TUNE_LOGNS]:
+        raise AssertionError("the autotuner's table misses a family")
+    log(f"autotuner at 2^{TUNE_LOGNS} into a temporary table: every MSM "
+        f"equal to the host's, {tune_s:.1f} s; re-measured against the "
+        f"committed entries: " + json.dumps({n: {
+            k: {"now": e[k], "committed": tune_table[n][k]}
+            for k in ("c", "host_ms", "device_warm_ms", "fresh_prep_ms")}
+            for n, (e, _) in tuned.items() if n in tune_table}))
+    route_sizes = (64, 128, 256, 512, 768, 1 << 16, 626_000)
+    routing = {"committed": {}, "untuned": {}}
+    for label in routing:
+        with (untuned(msm_tune) if label == "untuned"
+              else contextlib.nullcontext()):
+            routing[label] = {f"{n} {'resident' if r else 'fresh'}":
+                              msm_tune.route_to_device(n, r, dev)
+                              for n in route_sizes for r in (False, True)}
+    log("route_to_device (True: the card): " + json.dumps(routing))
     routes = []
     route = msm_tune.route_to_device
 
@@ -1415,44 +1578,33 @@ def main() -> int:
         return v
 
     msm_tune.route_to_device = traced_route
-    with tempfile.TemporaryDirectory() as tmp:
-        for label, path in (("HybridBackend untuned", HYBRID_UNTUNED),
-                            ("HybridBackend tuned", HYBRID_TUNED)):
-            table = pathlib.Path(tmp) / "msm_tune.json"
-            os.environ["CURDLEPROOFS_TUNE"] = str(table)
-            msm_tune._load_raw.cache_clear()
-            if path == HYBRID_TUNED:
-                t0 = time.perf_counter()
-                tuned = tune(TUNE_LOGNS, dev, log=log)
-                log(f"autotuner at 2^{TUNE_LOGNS}: every MSM equal to the "
-                    f"host's, {time.perf_counter() - t0:.1f} s; table "
-                    + table.read_text().replace("\n", " "))
-                if sorted(tuned) != [1 << e for e in TUNE_LOGNS] or \
-                        set(msm_tune.load_table(dev)) != set(tuned):
-                    raise AssertionError("the autotuner's table misses a "
-                                         "family")
-            routes.clear()
-            hbackend = HybridBackend()
+    for label, path in (("HybridBackend untuned", HYBRID_UNTUNED),
+                        ("HybridBackend on the committed table",
+                         HYBRID_TUNED)):
+        routes.clear()
+        hbackend = HybridBackend()
+        with (untuned(msm_tune) if path == HYBRID_UNTUNED
+              else contextlib.nullcontext()):
             prove_walls[label] = protocol_run(hbackend, label)
             counted(path)
-            to_dev = sum(1 for _, _, v in routes if v)
-            verdicts = {v for _, _, v in routes}
-            log(f"{label}: msm engines {json.dumps(hbackend.engine_counts)}; "
-                f"{len(routes)} routing verdicts, {to_dev} to the card")
-            if path == HYBRID_UNTUNED and (
-                    verdicts - {None} or hbackend.engine_counts["device"]
-                    or any(by_path[path].values())):
-                raise AssertionError(f"{label}: an MSM or a kernel reached "
-                                     f"the card")
-            if path == HYBRID_TUNED and (
-                    None in verdicts
-                    or hbackend.engine_counts != {
-                        "device": to_dev, "host": len(routes) - to_dev}):
-                raise AssertionError(f"{label}: engine counts "
-                                     f"{hbackend.engine_counts} do not follow "
-                                     f"the table's verdicts {routes}")
-        del os.environ["CURDLEPROOFS_TUNE"]
-        msm_tune._load_raw.cache_clear()
+        to_dev = sum(1 for _, _, v in routes if v)
+        verdicts = {v for _, _, v in routes}
+        log(f"{label}: msm engines {json.dumps(hbackend.engine_counts)}; "
+            f"{len(routes)} routing verdicts, {to_dev} to the card, by size "
+            + json.dumps({f"{n} {'resident' if r else 'fresh'}": v
+                          for n, r, v in routes}))
+        if path == HYBRID_UNTUNED and (
+                verdicts - {None} or hbackend.engine_counts["device"]
+                or any(by_path[path].values())):
+            raise AssertionError(f"{label}: an MSM or a kernel reached "
+                                 f"the card")
+        if path == HYBRID_TUNED and (
+                None in verdicts
+                or hbackend.engine_counts != {
+                    "device": to_dev, "host": len(routes) - to_dev}):
+            raise AssertionError(f"{label}: engine counts "
+                                 f"{hbackend.engine_counts} do not follow "
+                                 f"the table's verdicts {routes}")
     msm_tune.route_to_device = route
     log("prove and verify walls (ms) by backend: " + json.dumps(prove_walls))
 
@@ -1497,7 +1649,6 @@ def main() -> int:
 
     # -- phase 9: multi-device on one card -------------------------------------
     from curdleproofs_tpu_torch.parallel import distributed as pdist
-    from curdleproofs_tpu_torch.parallel import sharded_msm as psm
     from curdleproofs_tpu_torch.tools.multihost_verify import build_batch
 
     def grid(dp, dw):
@@ -1895,6 +2046,34 @@ def main() -> int:
         raise AssertionError("aot_export rebuilt a stored library")
     log("phase 11 record: " + json.dumps({"card": card, "tools": tools_out}))
 
+    # -- phase 12: the examples at their default sizes on the card ----------
+    from curdleproofs_tpu_torch.examples import (
+        chain_sync_demo, msm_demo, whisk_ssle_demo,
+    )
+
+    examples = {}
+    ex_backend = TorchBackend()
+    with use_backend(ex_backend):
+        torch.cuda.synchronize()
+        K.reset_launches()
+        for mod in (whisk_ssle_demo, chain_sync_demo, msm_demo):
+            name = mod.__name__.rsplit(".", 1)[1]
+            out = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = mod.main([])            # raises on a failed assertion
+            wall = time.perf_counter() - t0
+            if rc != 0:
+                raise AssertionError(f"example {name} returned {rc}")
+            examples[name] = {"wall_s": wall,
+                              "output": out.getvalue().splitlines()}
+            log(f"[{card}] example {name}: {wall:.1f} s; "
+                + " | ".join(examples[name]["output"]))
+        counted(EXAMPLES_PATH)
+    log("phase 12 record: " + json.dumps({
+        "card": card, "examples": examples,
+        "msm_engines": ex_backend.engine_counts}))
+
     for name, rec in records.items():
         src = K.source_of(name)
         rec["build_s"] = exported[src]["build_s"]
@@ -1922,4 +2101,6 @@ if __name__ == "__main__":
     # miss), phase 10's fresh processes load from it (hits)
     with tempfile.TemporaryDirectory(prefix="curdleproofs_aot_") as store:
         os.environ["CURDLEPROOFS_AOT_DIR"] = store
+        # the committed tune table is in force
+        os.environ.pop("CURDLEPROOFS_TUNE", None)
         sys.exit(main())

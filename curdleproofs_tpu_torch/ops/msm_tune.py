@@ -11,8 +11,14 @@ its device-vs-host crossover (`route_to_device`) and batch verification its
 split (`parallel/batch_verify.py::plan_split_fraction`), each the entry of
 the device it runs on, so a `"tpu"` or `"cpu"` entry never routes work on
 the card.  `CURDLEPROOFS_TUNE` names the file; else it is `msm_tune.json`
-beside this module.  The port ships no table: the JAX package's was
-measured on a TPU.  Untuned, every reader sees an empty table.
+beside this module, the table the port ships: `"cuda"` entries for the
+families 2^7-2^10, 2^12, ..., 2^20, made on an H100 by two passes of
+`tools/msm_autotune.py` (every device result equal to the native host
+MSM's), with a top-level `"stamp"` (the card's nvidia-smi line, the
+commit, the sources' sha256, torch's version, the date) that no reader
+takes for a device type.  It holds no `"cpu"` entry, so a CPU run reads an
+empty table and stays untuned, as does a `CURDLEPROOFS_TUNE` naming an
+absent file.
 """
 
 from __future__ import annotations
@@ -24,8 +30,12 @@ import pathlib
 
 import torch
 
-__all__ = ["HOST_MS_GUARD", "load_table", "record_entry", "route_to_device",
-           "table_path", "tuned_c"]
+__all__ = ["HOST_MS_GUARD", "STAMP_KEY", "load_table", "record_entry",
+           "record_stamp", "route_to_device", "table_path", "table_stamp",
+           "tuned_c"]
+
+#: The table's one top-level key that is not a device type.
+STAMP_KEY = "stamp"
 
 
 def table_path() -> pathlib.Path:
@@ -55,6 +65,11 @@ def load_table(device="cuda") -> dict:
     """{n_pad(int): entry} for `device`'s type; {} when untuned."""
     raw = _load_raw().get(_platform(device), {})
     return {int(k): v for k, v in raw.items()}
+
+
+def table_stamp() -> dict | None:
+    """The table's `STAMP_KEY` entry (what made it), or None."""
+    return _load_raw().get(STAMP_KEY)
 
 
 def tuned_c(n_pad: int, device="cuda") -> int | None:
@@ -117,13 +132,7 @@ def record_entry(n_pad: int, entry: dict, force: bool = False,
     the guard (explicit operator intent).  Accepted passes append to a
     bounded `host_ms_history` so drift stays visible.
     """
-    p = table_path()
-    raw = {}
-    if p.is_file():
-        try:
-            raw = json.loads(p.read_text())
-        except (OSError, ValueError):
-            raw = {}
+    raw = _read_for_update()
     fam = raw.setdefault(_platform(device), {})
     prev = fam.get(str(n_pad))
     status = "written"
@@ -150,8 +159,32 @@ def record_entry(n_pad: int, entry: dict, force: bool = False,
                                                 [prev["host_ms"]])
         entry["host_ms_history"] = (hist + [entry["host_ms"]])[-6:]
         fam[str(n_pad)] = entry
+    _write(raw)
+    return status
+
+
+def record_stamp(stamp: dict) -> None:
+    """Set the table's `STAMP_KEY` entry (what made it: tools/msm_autotune.py
+    writes the card, the commit, the sources' hash, torch's version and the
+    date after each pass); every device type's entries stay as they are."""
+    raw = _read_for_update()
+    raw[STAMP_KEY] = stamp
+    _write(raw)
+
+
+def _read_for_update() -> dict:
+    p = table_path()
+    if p.is_file():
+        try:
+            return json.loads(p.read_text())
+        except (OSError, ValueError):
+            pass
+    return {}
+
+
+def _write(raw: dict) -> None:
+    p = table_path()
     tmp = p.with_suffix(".tmp")
     tmp.write_text(json.dumps(raw, indent=1, sort_keys=True) + "\n")
     tmp.replace(p)
     _load_raw.cache_clear()
-    return status

@@ -4,9 +4,9 @@ and its artifact's stamps.
 Each tool runs on the card unless given `--device cpu`, writes only to
 `--out` (through `utils.artifacts.write_artifact`, which refuses to replace
 a larger run with a smaller one), and stamps its artifact with the commit
-(`"unknown"` outside a checkout), a sha256 of the port's `.py` and `csrc/`
-sources, the torch version and the card as `nvidia-smi` names it (on the
-CPU: that there is none).  Tools run by their path or as modules
+(outside a checkout `$CURDLEPROOFS_COMMIT`, else `"unknown"`), a sha256 of
+the port's `.py` and `csrc/` sources, the torch version and the card as
+`nvidia-smi` names it (on the CPU: that there is none).  Tools run by their path or as modules
 (`python -m curdleproofs_tpu_torch.tools.<name>`).
 """
 
@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import os
 import pathlib
 import subprocess
 import time
@@ -143,17 +144,20 @@ def source_sha256() -> str:
 
 
 def _commit() -> str:
-    """HEAD of the checkout this tree is the root of, else "unknown"."""
+    """HEAD of the checkout this tree is the root of; outside one (a copy
+    without `.git`), `$CURDLEPROOFS_COMMIT` as the caller names it, else
+    "unknown"."""
+    fallback = os.environ.get("CURDLEPROOFS_COMMIT", "unknown")
     try:
         r = subprocess.run(["git", "-C", str(REPO), "rev-parse",
                             "--show-toplevel", "HEAD"],
                            capture_output=True, text=True, timeout=30)
     except (OSError, subprocess.SubprocessError):
-        return "unknown"
+        return fallback
     lines = r.stdout.split()
     if r.returncode or len(lines) != 2 \
             or pathlib.Path(lines[0]).resolve() != REPO.resolve():
-        return "unknown"
+        return fallback
     return lines[1]
 
 

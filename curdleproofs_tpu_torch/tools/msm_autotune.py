@@ -3,6 +3,12 @@
 
     python3 curdleproofs_tpu_torch/tools/msm_autotune.py [logns...]
 
+The port ships the table this tool made on an H100
+(`curdleproofs_tpu_torch/ops/msm_tune.json`): two passes over 7 8 9 10 12
+14 16 18 20 from a clean tree, the second agreeing with the first (no
+entry quarantined).  Remake it the same way on the card it is for; point
+`CURDLEPROOFS_TUNE` elsewhere to measure without touching it.
+
 For each family n = 2^logn (default 2^10..2^20, even octaves):
   - the device warm wall of `msm_device` per candidate window width (c = 8
     always; c = 16 from 2^16 up, below which its 32k-bucket slot floor
@@ -18,7 +24,11 @@ For each family n = 2^logn (default 2^10..2^20, even octaves):
 Every device result must equal the host's.  Each family's entry goes
 through `msm_tune.record_entry` under the device's type (`"cuda"`) into
 `msm_tune.table_path()`: `CURDLEPROOFS_TUNE` names the file, and
-`CURDLEPROOFS_TUNE_FORCE=1` bypasses the contention guard.  `pick_params`,
+`CURDLEPROOFS_TUNE_FORCE=1` bypasses the contention guard.  After the
+pass, `main` writes the table's `"stamp"` (`msm_tune.record_stamp`): the
+card's nvidia-smi line, the commit (`$CURDLEPROOFS_COMMIT` in a copy
+without `.git`), the sources' sha256, torch's version, the UTC date, the
+families of the pass and any it quarantined.  `pick_params`,
 `HybridBackend` and batch verification's split then read it.
 """
 
@@ -135,13 +145,26 @@ def tune(logns, device="cuda", log=print) -> dict[int, tuple[dict, str]]:
 
 def main(argv: list[str]) -> int:
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[2]))
-    from curdleproofs_tpu_torch.ops.msm_tune import table_path
-    from curdleproofs_tpu_torch.tools.common import card_line
+    import datetime
+
+    import torch
+
+    from curdleproofs_tpu_torch.ops.msm_tune import record_stamp, table_path
+    from curdleproofs_tpu_torch.tools.common import card_line, stamps
 
     logns = [int(a) for a in argv] or [10, 12, 14, 16, 18, 20]
     print(card_line(), flush=True)  # raises without a card, as tune() does
-    tune(logns, log=lambda *a: print(*a, flush=True))
-    print(f"table written: {table_path()}")
+    out = tune(logns, log=lambda *a: print(*a, flush=True))
+    stamp = stamps(torch.device("cuda"))
+    del stamp["device"]
+    stamp.update(
+        date=datetime.datetime.now(datetime.timezone.utc).isoformat(
+            timespec="seconds"),
+        logns=logns,
+        quarantined=sorted(n for n, (_, st) in out.items()
+                           if st == "quarantined"))
+    record_stamp(stamp)
+    print(f"table written: {table_path()}; stamp {json.dumps(stamp)}")
     return 0
 
 

@@ -240,9 +240,10 @@ def test_streamed_split_extremes(batches, tmp_path, monkeypatch, rates,
         msm_tune._load_raw.cache_clear()
 
 
-def test_untuned_split_is_half(monkeypatch):
-    """The port ships no table: every device type splits 50/50."""
-    monkeypatch.delenv("CURDLEPROOFS_TUNE", raising=False)
+def test_untuned_split_is_half(tmp_path, monkeypatch):
+    """Untuned (`CURDLEPROOFS_TUNE` naming an absent file), every device
+    type splits 50/50."""
+    monkeypatch.setenv("CURDLEPROOFS_TUNE", str(tmp_path / "absent.json"))
     msm_tune._load_raw.cache_clear()
     try:
         assert not msm_tune.table_path().exists()

@@ -883,6 +883,44 @@ def test_hybrid_backend_routes_as_the_table_says(tmp_path, monkeypatch):
         msm_tune._load_raw.cache_clear()
 
 
+def test_committed_tune_table_sets_the_cards_window_widths(monkeypatch):
+    """The table the port ships loads under "cuda", each family's measured
+    c is the one `pick_params` takes on the card, and an MSM of the
+    smallest family runs at it (the suffix entry of its c) and equals the
+    host's."""
+    dev = _card()
+    import pathlib
+
+    from curdleproofs_tpu_torch.ops import msm_tune
+
+    monkeypatch.delenv("CURDLEPROOFS_TUNE", raising=False)
+    msm_tune._load_raw.cache_clear()
+    try:
+        assert msm_tune.table_path() == pathlib.Path(
+            msm_tune.__file__).with_name("msm_tune.json")
+        table = msm_tune.load_table(dev)
+        assert sorted(table) == [1 << k for k in (7, 8, 9, 10, 12, 14, 16,
+                                                  18, 20)]
+        assert msm_tune.table_stamp()["card"].startswith("NVIDIA H100")
+        for n, e in table.items():
+            assert msm_tune.tuned_c(n, dev) == e["c"]
+            p = md.pick_params(n, device=dev)
+            assert (p.n, p.c, p.t_rows, p.s_pad) == (n, e["c"], e["t_rows"],
+                                                     e["s_pad"])
+        n = min(table)
+        rng = StdRng.seed_from_u64(35)
+        pts = [rng.rand_g1() for _ in range(n)]
+        ss = [rnd.randrange(R) for _ in range(n)]
+        bases = md.DeviceBases(pts, dev)
+        kernels.reset_launches()
+        assert md.msm_device(bases, ss) == HostBackend().msm(pts, ss)
+        entry = ("g1_suffix_weighted_tree" if table[n]["c"] == 8
+                 else "g1_suffix_weighted")
+        assert kernels.LAUNCHES[entry] == 1
+    finally:
+        msm_tune._load_raw.cache_clear()
+
+
 # --------------------------------------------------------------------------
 # the sharded MSM on logical grids over the one card
 # --------------------------------------------------------------------------

@@ -65,6 +65,8 @@ warmup.start_background_init()
 warmup.wait_ready(120)
 from curdleproofs_tpu_torch.tools import common
 common.stamps(common.torch.device("cpu"))
+from curdleproofs_tpu_torch.examples import msm_demo
+msm_demo.main(["--device", "cpu", "--n", "9", "--grid", "1", "1"])
 bad = sorted(n for n in sys.modules
              if n == "curdleproofs_tpu" or n.startswith("curdleproofs_tpu."))
 print("LOADED", bad)
@@ -100,7 +102,9 @@ def test_port_sources_import_no_jax():
                 "msm_autotune", "aot_export", "batch_prove_bench",
                 "cold_start_probe", "common", "grouped_profile",
                 "msm_profile", "msm_sweep", "multihost_scaling",
-                "scaling_report", "speed_of_light", "sync_floor_probe"))} \
+                "scaling_report", "speed_of_light", "sync_floor_probe")),
+            *(_PKG / "examples" / f"{name}.py" for name in (
+                "whisk_ssle_demo", "chain_sync_demo", "msm_demo"))} \
         <= set(files)
     offenders = [str(f.relative_to(_REPO)) for f in files
                  if pat.search(f.read_text())]
