@@ -1,0 +1,52 @@
+"""decompress_us_per_point.verify: the program's span around each tracker
+list's decompression (`whisk.unzip_trackers`, the points it decompresses
+in its `points`), summed over the window, over those points, us a point.
+The span holds the whole native call: the parse, the square root and the
+subgroup ladder, which runs inline for the trackers (not deferred), so the
+number is all three.  The harness's probe time inside is left out."""
+
+import bisect
+
+
+def _program_spans(run):
+    """The program's own spans (`curdleproofs_tpu_torch.utils.trace`) that
+    lie inside the harness's window, as (name, start s, end s, attrs) on
+    the harness's clock, and the harness's probe spans; None where the
+    program records none."""
+    try:
+        from curdleproofs_tpu_torch.utils import trace
+
+        recs = trace.records()
+    except (ImportError, AttributeError):
+        return None
+    win = [(a, b) for n, a, b in run.spans.records if n == "window"]
+    if not recs or not win:
+        return None
+    w0, w1 = win[0]
+    spans = [(r.name, r.t0_ns * 1e-9, r.t1_ns * 1e-9, r.attrs or {})
+             for r in recs if w0 <= r.t0_ns * 1e-9 and r.t1_ns * 1e-9 <= w1]
+    probes = sorted((a, b) for n, a, b in run.spans.records if n == "probe")
+    return (spans, probes) if spans else None
+
+
+def _probe_s(probes: list, a: float, b: float) -> float:
+    """Seconds of the harness's own probe spans (sorted (start, end)
+    pairs) inside [a, b]."""
+    i, s = bisect.bisect_left(probes, (a,)), 0.0
+    while i < len(probes) and probes[i][0] <= b:
+        s += probes[i][1] - probes[i][0] if probes[i][1] <= b else 0.0
+        i += 1
+    return s
+
+
+def read(run):
+    got = _program_spans(run)
+    if got is None:
+        return None
+    spans, probes = got
+    secs = points = 0
+    for name, a, b, attrs in spans:
+        if name == "whisk.unzip_trackers":
+            secs += b - a - _probe_s(probes, a, b)
+            points += attrs.get("points", 0)
+    return secs / points * 1e6 if points else None

@@ -1,0 +1,57 @@
+"""final_msm_host_ms.verify: the host's share of a batch's final MSM on the
+card: inside each `verify.final_check` span, the `msm.device` spans (the
+bases' export and upload, the scalars, the queueing of the pipeline, the
+wait for the window sums, the host Horner) less their `msm.wait` spans (the
+merge loop's bound read and the window sums' download) and the harness's
+probe time, ms a batch."""
+
+import bisect
+
+
+def _program_spans(run):
+    """The program's own spans (`curdleproofs_tpu_torch.utils.trace`) that
+    lie inside the harness's window, as (name, start s, end s, attrs) on
+    the harness's clock, and the harness's probe spans; None where the
+    program records none."""
+    try:
+        from curdleproofs_tpu_torch.utils import trace
+
+        recs = trace.records()
+    except (ImportError, AttributeError):
+        return None
+    win = [(a, b) for n, a, b in run.spans.records if n == "window"]
+    if not recs or not win:
+        return None
+    w0, w1 = win[0]
+    spans = [(r.name, r.t0_ns * 1e-9, r.t1_ns * 1e-9, r.attrs or {})
+             for r in recs if w0 <= r.t0_ns * 1e-9 and r.t1_ns * 1e-9 <= w1]
+    probes = sorted((a, b) for n, a, b in run.spans.records if n == "probe")
+    return (spans, probes) if spans else None
+
+
+def _probe_s(probes: list, a: float, b: float) -> float:
+    """Seconds of the harness's own probe spans (sorted (start, end)
+    pairs) inside [a, b]."""
+    i, s = bisect.bisect_left(probes, (a,)), 0.0
+    while i < len(probes) and probes[i][0] <= b:
+        s += probes[i][1] - probes[i][0] if probes[i][1] <= b else 0.0
+        i += 1
+    return s
+
+
+def read(run):
+    got = _program_spans(run)
+    if got is None:
+        return None
+    spans, probes = got
+    finals = [(a, b) for n, a, b, _ in spans if n == "verify.final_check"]
+    host, seen = 0.0, False
+    for a, b in finals:
+        for name, x, y, _ in spans:
+            if a <= x and y <= b:
+                if name == "msm.device":
+                    host += y - x - _probe_s(probes, x, y)
+                    seen = True
+                elif name == "msm.wait":
+                    host -= y - x
+    return host / len(finals) * 1e3 if seen else None

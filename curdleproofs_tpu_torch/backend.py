@@ -14,6 +14,7 @@ ladders, on a CUDA card through the hand-written kernels.
 from __future__ import annotations
 
 from .host.g1 import G1
+from .utils.trace import span
 
 __all__ = ["Backend", "HostBackend", "get_backend", "set_backend", "use_backend"]
 
@@ -93,14 +94,16 @@ class HostBackend(Backend):
         if not points:
             return G1.infinity()
         if self._native is not None and len(points) >= 2:
-            return self._native.msm(points, scalars)
+            with span("host.msm", timeline=False, terms=len(points)):
+                return self._native.msm(points, scalars)
         return _pippenger(points, scalars)
 
     def msm_raw(self, points: list[G1], sbytes: bytes) -> G1:
         if not points:
             return G1.infinity()
         if self._native is not None and len(points) >= 2:
-            return self._native.msm_scalars_raw(points, sbytes)
+            with span("host.msm", timeline=False, terms=len(points)):
+                return self._native.msm_scalars_raw(points, sbytes)
         return super().msm_raw(points, sbytes)
 
     def batch_mul(self, points: list[G1], scalar: int) -> list[G1]:
@@ -120,7 +123,8 @@ class HostBackend(Backend):
 
     def msm_many(self, groups: list[tuple[list[G1], list[int]]]) -> list[G1]:
         if self._native is not None and sum(len(p) for p, _ in groups) >= 8:
-            return self._native.msm_many(groups)
+            with span("host.msm", timeline=False, msms=len(groups)):
+                return self._native.msm_many(groups)
         return [self.msm(p, s) for p, s in groups]
 
     def fold_points_each(self, left: list[G1], right: list[G1],

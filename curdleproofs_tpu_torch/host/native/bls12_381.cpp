@@ -1113,8 +1113,6 @@ void msm_batch_affine(const G1 *jac_pts, const uint8_t *scalars, size_t n,
     size_t max_occ = 0;
     for (auto &v : occ) max_occ = v.size() > max_occ ? v.size() : max_occ;
 
-    bool prof = std::getenv("CP_PROF") != nullptr;
-    auto tp0 = std::chrono::steady_clock::now();
     std::vector<int64_t> slots, pis;
     std::vector<Fq> denoms;
     std::vector<int> kinds;
@@ -1131,7 +1129,6 @@ void msm_batch_affine(const G1 *jac_pts, const uint8_t *scalars, size_t n,
                         slots.size(), denoms, kinds);
     }
 
-    auto tp1 = std::chrono::steady_clock::now();
     // combine: per window running/weighted sums (jacobian), then the ladder
     g1_set_inf(out);
     G1 t;
@@ -1160,13 +1157,6 @@ void msm_batch_affine(const G1 *jac_pts, const uint8_t *scalars, size_t n,
         }
         g1_add(out, wsum, t);
         out = t;
-    }
-    if (prof) {
-        auto tp2 = std::chrono::steady_clock::now();
-        fprintf(stderr, "[ba] c=%d windows=%d max_occ=%zu bucket_phase=%.1fms combine=%.1fms\n",
-                c, windows, max_occ,
-                std::chrono::duration<double, std::milli>(tp1 - tp0).count(),
-                std::chrono::duration<double, std::milli>(tp2 - tp1).count());
     }
 }
 
@@ -2258,8 +2248,6 @@ void msm_glv_ba(const G1 *jac_pts, size_t n,
                 const uint8_t *k1s, const uint8_t *negs1,
                 const uint8_t *k2s, const uint8_t *negs2,
                 const Fq &beta_mont, G1 &out) {
-    bool prof = std::getenv("CP_PROF") != nullptr;
-    auto tp0 = std::chrono::steady_clock::now();
     // 1. normalise inputs once; build 2n affine points (second half = endo)
     std::vector<G1> norm(jac_pts, jac_pts + n);
     batch_normalize(norm.data(), n);
@@ -2353,15 +2341,12 @@ void msm_glv_ba(const G1 *jac_pts, size_t n,
         }
         if (vspan[s] > 1) split_slots.push_back((uint32_t)s);
     }
-    auto tp1 = std::chrono::steady_clock::now();
-    size_t npasses = 0;
     std::vector<int64_t> slots, pis;
     std::vector<uint8_t> negs;
     std::vector<Fq> denoms;
     std::vector<int> kinds;
     std::vector<uint32_t> nxt;
     while (!live.empty()) {
-        ++npasses;
         slots.clear(); pis.clear(); negs.clear(); nxt.clear();
         for (uint32_t v : live) {
             uint32_t e = sorted[off[v]++];
@@ -2389,7 +2374,6 @@ void msm_glv_ba(const G1 *jac_pts, size_t n,
                             pis.data(), slots.size(), denoms, kinds, nullptr);
     }
 
-    auto tp2 = std::chrono::steady_clock::now();
     // 4. per-window running/weighted chains (mixed adds: buckets are affine),
     //    then the Horner doubling ladder across windows.
     g1_set_inf(out);
@@ -2422,16 +2406,6 @@ void msm_glv_ba(const G1 *jac_pts, size_t n,
         }
         g1_add(out, wsum, t);
         out = t;
-    }
-    if (prof) {
-        auto tp3 = std::chrono::steady_clock::now();
-        fprintf(stderr,
-                "[glv] n=%zu c=%d W=%d entries=%zu passes=%zu "
-                "setup=%.1fms buckets=%.1fms chain=%.1fms\n",
-                n, c, windows, raw.size(), npasses,
-                std::chrono::duration<double, std::milli>(tp1 - tp0).count(),
-                std::chrono::duration<double, std::milli>(tp2 - tp1).count(),
-                std::chrono::duration<double, std::milli>(tp3 - tp2).count());
     }
 }
 
@@ -2689,8 +2663,6 @@ void ifma_bucket_scatter(const u64 *px52, const u64 *py52,
                          std::vector<u64> &bkx, std::vector<u64> &bky,
                          std::vector<uint8_t> &binf) {
     using namespace ifma;
-    bool prof = std::getenv("CP_PROF") != nullptr;
-    auto ts0 = std::chrono::steady_clock::now();
     bkx.assign(nslots * 8, 0);
     bky.assign(nslots * 8, 0);
     binf.assign(nslots, 1);
@@ -2749,7 +2721,6 @@ void ifma_bucket_scatter(const u64 *px52, const u64 *py52,
 
     for (const SEnt &e : entries) push(e);
     flush();
-    auto ts1 = std::chrono::steady_clock::now();
 
     // ---- overflow: counting-sort by slot, materialize signed copies,
     //      pair-reduce each slot's segment, merge survivors into buckets --
@@ -2857,14 +2828,6 @@ void ifma_bucket_scatter(const u64 *px52, const u64 *py52,
             },
             [&](size_t e) { binf[hs_slot[e]] = 1; });
     }
-    if (prof)
-        fprintf(stderr,
-                "[scatter] m=%zu overflow=%zu stream=%.1fms tree=%.1fms\n",
-                entries.size(), no,
-                std::chrono::duration<double, std::milli>(ts1 - ts0).count(),
-                std::chrono::duration<double, std::milli>(
-                    std::chrono::steady_clock::now() - ts1)
-                    .count());
 }
 
 // Bucket chains vectorized ACROSS windows: lane (k*8 + j) of instance k runs
@@ -2914,8 +2877,6 @@ void msm_glv_ifma_multi(const G1 *jac_pts, size_t n,
                         const uint8_t *k2s, const uint8_t *negs2,
                         const Fq &beta_mont, const uint32_t *msm_id,
                         size_t n_msms, G1 *outs) {
-    bool prof = std::getenv("CP_PROF") != nullptr;
-    auto tp0 = std::chrono::steady_clock::now();
     std::vector<G1> norm(jac_pts, jac_pts + n);
     batch_normalize(norm.data(), n);
     size_t npts = 2 * n;
@@ -2981,12 +2942,10 @@ void msm_glv_ifma_multi(const G1 *jac_pts, size_t n,
             }
         }
     }
-    auto tp1 = std::chrono::steady_clock::now();
 
     std::vector<u64> bkx, bky;
     std::vector<uint8_t> binf;
     ifma_bucket_scatter(px52.data(), py52.data(), raw, nslots, bkx, bky, binf);
-    auto tp2 = std::chrono::steady_clock::now();
 
     // running/weighted bucket chains, 8 windows per lane-group, instances
     // interleaved; then extras, then the scalar Horner ladder over windows.
@@ -3046,16 +3005,6 @@ void msm_glv_ifma_multi(const G1 *jac_pts, size_t n,
             const G1 &s_w = wsums[mi * windows + w];
             if (!g1_is_inf(s_w)) { g1_add(out, s_w, t); out = t; }
         }
-    }
-    if (prof) {
-        auto tp3 = std::chrono::steady_clock::now();
-        fprintf(stderr,
-                "[glv-ifma] n=%zu m=%zu c=%d W=%d entries=%zu setup=%.1fms "
-                "buckets=%.1fms chain=%.1fms\n",
-                n, n_msms, c, windows, raw.size(),
-                std::chrono::duration<double, std::milli>(tp1 - tp0).count(),
-                std::chrono::duration<double, std::milli>(tp2 - tp1).count(),
-                std::chrono::duration<double, std::milli>(tp3 - tp2).count());
     }
 }
 

@@ -9,6 +9,7 @@ generator bytes at `curdleproofs/src/whisk.rs:364-368` and Fr round-trip at
 from __future__ import annotations
 
 from ..constants import Q, R
+from ..utils.trace import count, span
 from .g1 import G1, get_ys_from_x
 
 __all__ = [
@@ -104,36 +105,43 @@ class deferred_subgroup_checks:
             return False
         if not entries:
             return False
-        pts = [p for _, p in entries]
-        try:
-            import ctypes
+        with span("g1.subgroup_ladder", points=len(entries)):
+            _check_subgroup(entries)
+        return False
 
-            from . import native
 
-            lib = native.lib()
-            if lib is not None and hasattr(lib, "cp_subgroup_check"):
-                flags = ctypes.create_string_buffer(len(pts))
-                lib.cp_subgroup_check(native.pts_to_bytes(pts), len(pts),
-                                      flags)
-                if any(flags.raw):
-                    raise SerializationError(
-                        "point not in the prime-order subgroup")
-                if _cache_enabled():
-                    for buf, p in entries:
-                        if buf is not None:
-                            _cache_put(buf, p)
-                return False
-        except SerializationError:
-            raise
-        except Exception:
-            pass
-        for buf, pt in entries:
-            if not pt.is_in_correct_subgroup():
+def _check_subgroup(entries) -> None:
+    """Subgroup-check the deferred (bytes, point) pairs in one batched
+    native ladder (the Python check without it); cache the points."""
+    pts = [p for _, p in entries]
+    try:
+        import ctypes
+
+        from . import native
+
+        lib = native.lib()
+        if lib is not None and hasattr(lib, "cp_subgroup_check"):
+            flags = ctypes.create_string_buffer(len(pts))
+            lib.cp_subgroup_check(native.pts_to_bytes(pts), len(pts),
+                                  flags)
+            if any(flags.raw):
                 raise SerializationError(
                     "point not in the prime-order subgroup")
-            if buf is not None and _cache_enabled():
-                _cache_put(buf, pt)
-        return False
+            if _cache_enabled():
+                for buf, p in entries:
+                    if buf is not None:
+                        _cache_put(buf, p)
+            return
+    except SerializationError:
+        raise
+    except Exception:
+        pass
+    for buf, pt in entries:
+        if not pt.is_in_correct_subgroup():
+            raise SerializationError(
+                "point not in the prime-order subgroup")
+        if buf is not None and _cache_enabled():
+            _cache_put(buf, pt)
 
 
 def g1_from_bytes(buf: bytes, validate: bool = True) -> G1:
@@ -148,6 +156,7 @@ def g1_from_bytes(buf: bytes, validate: bool = True) -> G1:
     if _CACHE and _cache_enabled():
         cached = _CACHE.get(buf)
         if cached is not None:
+            count("g1.decompress_cache_hits")
             return cached
     p = _native_decompress_nosub(buf)
     if p is not None:
@@ -231,6 +240,8 @@ def g1_from_bytes_batch(bufs: list[bytes], validate: bool = True) -> list[G1]:
     hits = ([_CACHE.get(b) for b in bufs]
             if _CACHE and _cache_enabled() else [None] * len(bufs))
     miss_idx = [i for i, h in enumerate(hits) if h is None]
+    if len(miss_idx) < len(bufs):
+        count("g1.decompress_cache_hits", len(bufs) - len(miss_idx))
     if not miss_idx:
         return hits
     if validate and len(miss_idx) >= 4:

@@ -12,6 +12,7 @@ from .errors import VerificationError
 from .host.g1 import G1
 from .host.rng import StdRng
 from .util import FrVec, msm
+from .utils.trace import span
 
 # Below this many accumulated scalar terms the python dict merge wins on
 # latency; above it the fused native sweep (cp_fr_scale_accum) wins.
@@ -117,10 +118,11 @@ class MsmAccumulator:
         both forms."""
         from .host import native
 
-        if (native.available()
-                and sum(len(xs) for _, xs, _ in self._rels) >= _NATIVE_DEDUP_MIN):
-            return self._dedup_native(native, raw=True)
-        return self._dedup()
+        with span("msm.dedup"):
+            if (native.available() and sum(len(xs) for _, xs, _ in self._rels)
+                    >= _NATIVE_DEDUP_MIN):
+                return self._dedup_native(native, raw=True)
+            return self._dedup()
 
     def verify(self) -> None:
         """Run the single deduped MSM; raise VerificationError on mismatch.

@@ -24,6 +24,7 @@ from __future__ import annotations
 from ..backend import Backend, HostBackend, get_backend
 from ..constants import R
 from ..host.g1 import G1
+from ..utils.trace import span
 from . import msm
 from .device import resolve_device
 from .g1_ops import points_from_device, points_to_device
@@ -58,10 +59,12 @@ class TorchBackend(Backend):
         if not points:
             return G1.infinity()
         if not self._on_device(points):
-            return self._host.msm(points, scalars)
+            with span("msm.host", timeline=False, terms=len(points)):
+                return self._host.msm(points, scalars)
         from .msm_device import msm_device
 
-        return msm_device(points, list(scalars), device=self.device)
+        with span("msm.device", terms=len(points)):
+            return msm_device(points, list(scalars), device=self.device)
 
     def msm_raw(self, points: list[G1], sbytes: bytes) -> G1:
         n = len(points)
@@ -70,10 +73,12 @@ class TorchBackend(Backend):
         if n == 0:
             return G1.infinity()
         if not self._on_device(points):
-            return self._host.msm_raw(points, sbytes)
+            with span("msm.host", timeline=False, terms=n):
+                return self._host.msm_raw(points, sbytes)
         from .msm_device import msm_device
 
-        return msm_device(points, bytes(sbytes), device=self.device)
+        with span("msm.device", terms=n):
+            return msm_device(points, bytes(sbytes), device=self.device)
 
     # --- latency ops: the native host runtime ------------------------------
     def batch_mul(self, points: list[G1], scalar: int) -> list[G1]:

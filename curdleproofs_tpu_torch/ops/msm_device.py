@@ -37,6 +37,7 @@ import torch
 
 from ..constants import Q, R
 from ..host.g1 import G1
+from ..utils.trace import span
 from .device import resolve_device
 from .field import FQ, pack_pairs, unpack_pairs
 from .g1_ops import PointsXYZ, g1_add, g1_infinity, points_to_device
@@ -205,8 +206,6 @@ class DeviceBases:
 
     def __init__(self, points: list[G1], device="cuda",
                  n_pad: int | None = None):
-        from ..host import native
-
         self.device = resolve_device(device)
         self.n_real = len(points)
         if n_pad is None:
@@ -216,6 +215,12 @@ class DeviceBases:
                              f"for {len(points)} points")
         else:
             self.n = n_pad
+        with span("msm.bases", points=len(points)):
+            self._upload(points)
+
+    def _upload(self, points: list[G1]) -> None:
+        from ..host import native
+
         if native.available() and points \
                 and use_compressed_upload(self.device):
             px, meta = native.export_mont_x(points, self.n)
@@ -409,7 +414,8 @@ def _slot_plan(digits: torch.Tensor, *, n: int, c: int, t_rows: int,
     firstmap = torch.full((wb + 1,), _BIG, dtype=i64, device=dev)
     firstmap.scatter_reduce_(0, kdest.reshape(-1), gslot.reshape(-1), "amin")
     firstmap = firstmap[:-1]
-    kmax = int(torch.where(live_s, r_in_run // t_rows, 0).max()) + 1
+    with span("msm.wait"):   # the merge loop's bound: a device read
+        kmax = int(torch.where(live_s, r_in_run // t_rows, 0).max()) + 1
     return SlotPlan(key_s, slots_per_w, plan, slot_gkey, firstmap, kmax)
 
 
@@ -526,13 +532,16 @@ def _msm_pipeline(bases: "DeviceBases", limbs: np.ndarray,
                   params: MsmParams, mark=None, madd=True) -> torch.Tensor:
     """[16, n] uint16 scalar limbs -> [3, 24, W] canonical window sums."""
     mark = mark or (lambda stage: None)
-    lt = torch.from_numpy(limbs.astype(np.int32)).to(bases.device)
+    with span("msm.upload"):
+        lt = torch.from_numpy(limbs.astype(np.int32)).to(bases.device)
     mark("upload")
-    digits = _signed_digits(lt, params.n, params.c)
-    mark("recode")
-    return _pipeline_core(bases.ext_px, bases.ext_py, bases.ext_zb, digits,
-                          n=params.n, c=params.c, t_rows=params.t_rows,
-                          s_pad=params.s_pad, madd=madd, mark=mark)
+    with span("msm.enqueue"):
+        digits = _signed_digits(lt, params.n, params.c)
+        mark("recode")
+        return _pipeline_core(bases.ext_px, bases.ext_py, bases.ext_zb,
+                              digits, n=params.n, c=params.c,
+                              t_rows=params.t_rows, s_pad=params.s_pad,
+                              madd=madd, mark=mark)
 
 
 def _dispatch_pipeline(bases: "DeviceBases", scalars: "list[int] | bytes",
@@ -540,8 +549,9 @@ def _dispatch_pipeline(bases: "DeviceBases", scalars: "list[int] | bytes",
                        madd=True) -> torch.Tensor:
     """Queue one pipeline run; returns the device's [3, 24, W] window sums
     without waiting for them."""
-    return _msm_pipeline(bases, _scalars_to_limbs(scalars, params.n), params,
-                         mark, madd=madd)
+    with span("msm.scalars"):
+        limbs = _scalars_to_limbs(scalars, params.n)
+    return _msm_pipeline(bases, limbs, params, mark, madd=madd)
 
 
 # --------------------------------------------------------------------------
@@ -601,7 +611,10 @@ def msm_device(points: "list[G1] | DeviceBases",
     if params.n != bases.n:
         raise ValueError("bases padded under a different shape family")
     out = _dispatch_pipeline(bases, scalars, params, mark, madd)
-    return _horner_windows(_window_sums_to_host(out.cpu().numpy()), params.c)
+    with span("msm.wait"):
+        host = out.cpu().numpy()
+    with span("msm.horner"):
+        return _horner_windows(_window_sums_to_host(host), params.c)
 
 
 def _horner_windows(win: list[G1], c_bits: int) -> G1:
@@ -704,12 +717,16 @@ class DeviceMsmStream:
             self._dispatch(pts, sc)
             return
         if self._thread is None:
+            import contextvars
             import queue
             import threading
 
             self._q = queue.Queue(maxsize=4)
-            self._thread = threading.Thread(target=self._worker,
-                                            args=(self._q,), daemon=True)
+            # the worker runs in the submitter's context: its spans keep
+            # the submitting call's id
+            self._thread = threading.Thread(
+                target=contextvars.copy_context().run,
+                args=(self._worker, self._q), daemon=True)
             self._thread.start()
         self._q.put((pts, sc))
 
@@ -731,11 +748,13 @@ class DeviceMsmStream:
             self._thread, self._q = None, None
         if self._error is not None:
             raise self._error
-        wins: list[G1] | None = None
-        for out in self._outs:
-            pts = _window_sums_to_host(out.cpu().numpy())
-            wins = pts if wins is None else [a.add(b)
-                                             for a, b in zip(wins, pts)]
-        if wins is None:
+        with span("msm.wait"):
+            outs = [out.cpu().numpy() for out in self._outs]
+        if not outs:
             return G1.infinity()
-        return _horner_windows(wins, self.params.c)
+        with span("msm.horner"):
+            wins = _window_sums_to_host(outs[0])
+            for out in outs[1:]:
+                wins = [a.add(b)
+                        for a, b in zip(wins, _window_sums_to_host(out))]
+            return _horner_windows(wins, self.params.c)

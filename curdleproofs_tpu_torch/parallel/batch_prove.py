@@ -45,7 +45,6 @@ byte-identically to `CurdleproofsProof.new` run one at a time
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 
 import numpy as np
@@ -71,6 +70,7 @@ from ..same_permutation import SamePermutationProof
 from ..same_scalar import SameScalarProof
 from ..transcript import Transcript, _points_payload
 from ..util import get_permutation, inner_product
+from ..utils.trace import span
 
 __all__ = ["ProveInstance", "batch_prove"]
 
@@ -197,54 +197,54 @@ def use_table() -> bool:
 class _Dispatcher:
     """Pack (cols, raw-scalar) relations into one grouped device dispatch.
 
-    `timings` accumulates the wall split per dispatch (pack / upload + run +
-    download / decode) and the table build (`table_s`, within the caller's
-    `bases_s`).  `mark(stage)`, when given, reaches the grouped MSM's stages
-    and is called with "start" as each dispatch begins."""
+    Each dispatch is a `prove.dispatch` span; its stages' spans add their
+    seconds to `timings` (given, or a dict of its own): `pack_s`,
+    `device_s` (upload, run and download, its `dispatch.wait` the download's
+    wait on the card) and `decode_s`, and the table build `table_s` (within
+    the caller's `bases_s`).  `mark(stage)`, when given, reaches the grouped
+    MSM's stages and is called with "start" as each dispatch begins."""
 
     def __init__(self, bases: DeviceBases, madd: bool | None = None,
-                 mark=None):
+                 mark=None, timings: dict | None = None):
         self.bases = bases
         self.madd = use_madd() if madd is None else madd
         self.mark = mark or (lambda stage: None)
-        self.timings: dict[str, float] = {}
+        self.timings: dict[str, float] = {} if timings is None else timings
         self.table = None
         if use_table():
-            t0 = time.perf_counter()
-            self.table = DeviceBasesTable(bases)
-            _sync(bases.device)
-            self._t("table_s", t0)
-
-    def _t(self, key: str, t0: float) -> float:
-        t1 = time.perf_counter()
-        self.timings[key] = self.timings.get(key, 0.0) + (t1 - t0)
-        return t1
+            with span("prove.table", acc=self.timings, key="table_s"):
+                self.table = DeviceBasesTable(bases)
+                _sync(bases.device)
 
     def run(self, rels: "list[tuple[np.ndarray, bytes]]") -> list[G1]:
         """rels: [(cols int32 [w], scalars raw 32 B-LE [w*32])] -> [G1]."""
-        t0 = time.perf_counter()
-        self.mark("start")
-        width = max(len(c) for c, _ in rels)
-        params = pick_grouped_params(len(rels), width, self.bases.n)
-        limbs, cols = pack_relations(rels, params.n_rel, width,
-                                     self.bases.n)
-        t0 = self._t("pack_s", t0)
-        lt, ct = upload_relations(limbs, cols, self.bases.device)
-        self.mark("upload")
-        if self.table is not None:
-            out = grouped_table_run(
-                self.table.ext_px, self.table.ext_py, self.table.ext_zb,
-                lt, ct, n_rel=params.n_rel, width=width,
-                n_base=self.table.n, madd=self.madd, mark=self.mark)
-        else:
-            out = grouped_slot_run(
-                self.bases.ext_px, self.bases.ext_py, self.bases.ext_zb,
-                lt, ct, params=params, madd=self.madd, mark=self.mark)
-        host = out.cpu().numpy()
-        t0 = self._t("device_s", t0)
-        pts = decode_points(host)[: len(rels)]
-        self._t("decode_s", t0)
-        self.timings["dispatches"] = self.timings.get("dispatches", 0) + 1
+        tm = self.timings
+        with span("prove.dispatch", timeline=False, relations=len(rels)):
+            with span("dispatch.pack", acc=tm, key="pack_s", timeline=False):
+                self.mark("start")
+                width = max(len(c) for c, _ in rels)
+                params = pick_grouped_params(len(rels), width, self.bases.n)
+                limbs, cols = pack_relations(rels, params.n_rel, width,
+                                             self.bases.n)
+            with span("dispatch.device", acc=tm, key="device_s", timeline=False):
+                lt, ct = upload_relations(limbs, cols, self.bases.device)
+                self.mark("upload")
+                if self.table is not None:
+                    t = self.table
+                    out = grouped_table_run(
+                        t.ext_px, t.ext_py, t.ext_zb, lt, ct,
+                        n_rel=params.n_rel, width=width, n_base=t.n,
+                        madd=self.madd, mark=self.mark)
+                else:
+                    b = self.bases
+                    out = grouped_slot_run(
+                        b.ext_px, b.ext_py, b.ext_zb, lt, ct, params=params,
+                        madd=self.madd, mark=self.mark)
+                with span("dispatch.wait", timeline=False):
+                    host = out.cpu().numpy()
+            with span("dispatch.decode", acc=tm, key="decode_s", timeline=False):
+                pts = decode_points(host)[: len(rels)]
+        tm["dispatches"] = tm.get("dispatches", 0) + 1
         return pts
 
 
@@ -301,8 +301,22 @@ def batch_prove(crs: CurdleproofsCrs, instances: list[ProveInstance],
 def _prove_wave(crs: CurdleproofsCrs, insts: list[ProveInstance],
                 madd: bool | None = None,
                 mark=None) -> list[CurdleproofsProof]:
+    timings: dict[str, float] = {}
+    with span("prove.wave", acc=timings, key="wave_s", proofs=len(insts)):
+        proofs = _wave_steps(crs, insts, madd, mark, timings)
+    timings["host_other_s"] = timings["wave_s"] - sum(
+        timings.get(k, 0.0)
+        for k in ("bases_s", "pack_s", "device_s", "decode_s"))
+    batch_prove.last_timings = dict(timings)  # the last wave's stage times
+    return proofs
+
+
+def _wave_steps(crs: CurdleproofsCrs, insts: list[ProveInstance],
+                madd: bool | None, mark,
+                timings: dict) -> list[CurdleproofsProof]:
+    """One wave's steps, each a span under `prove.wave`; the dispatch
+    stages' seconds go to `timings` (see `_Dispatcher`)."""
     device = active_device()
-    t_wave = time.perf_counter()
     B = len(insts)
     ell = len(crs.vec_G)
     n = ell + N_BLINDERS
@@ -310,372 +324,376 @@ def _prove_wave(crs: CurdleproofsCrs, insts: list[ProveInstance],
     lg_n = n.bit_length() - 1
 
     # ---- resident bases: CRS + per-proof R/S/T/U, one upload --------------
-    G_off, H_off = 0, ell
-    H_idx, Gt_idx, Gu_idx, INF = ell + 4, ell + 5, ell + 6, ell + 7
-    combined: list[G1] = (list(crs.vec_G) + list(crs.vec_H)
-                          + [crs.H, crs.G_t, crs.G_u, G1.infinity()])
-    r_off, s_off, t_off, u_off = [], [], [], []
-    for inst in insts:
-        for off, vec in ((r_off, inst.vec_R), (s_off, inst.vec_S),
-                         (t_off, inst.vec_T), (u_off, inst.vec_U)):
-            off.append(len(combined))
-            combined.extend(vec)
-    bases = DeviceBases(combined, device)
-    _sync(device)
-    disp = _Dispatcher(bases, madd, mark)
-    disp.timings["bases_s"] = time.perf_counter() - t_wave
+    with span("prove.bases", acc=timings, key="bases_s"):
+        G_off, H_off = 0, ell
+        H_idx, Gt_idx, Gu_idx, INF = ell + 4, ell + 5, ell + 6, ell + 7
+        combined: list[G1] = (list(crs.vec_G) + list(crs.vec_H)
+                              + [crs.H, crs.G_t, crs.G_u, G1.infinity()])
+        r_off, s_off, t_off, u_off = [], [], [], []
+        for inst in insts:
+            for off, vec in ((r_off, inst.vec_R), (s_off, inst.vec_S),
+                             (t_off, inst.vec_T), (u_off, inst.vec_U)):
+                off.append(len(combined))
+                combined.extend(vec)
+        bases = DeviceBases(combined, device)
+        _sync(device)
+        disp = _Dispatcher(bases, madd, mark, timings)
 
-    # position -> column maps (n-long base vectors of the sub-arguments)
-    acols = np.concatenate([np.arange(G_off, G_off + ell, dtype=np.int32),
-                            np.arange(H_off, H_off + 4, dtype=np.int32)])
-    gcols = np.concatenate([np.arange(G_off, G_off + ell, dtype=np.int32),
-                            np.array([H_off, H_off + 1, Gt_idx, Gu_idx],
-                                     np.int32)])
-    tcols = [np.concatenate([np.arange(t, t + ell, dtype=np.int32),
-                             np.array([INF, INF, H_idx, INF], np.int32)])
-             for t in t_off]
-    ucols = [np.concatenate([np.arange(u, u + ell, dtype=np.int32),
-                             np.array([INF, INF, INF, H_idx], np.int32)])
-             for u in u_off]
-    rounds = _round_maps(n)
+    with span("prove.setup"):
+        # position -> column maps (n-long base vectors of the sub-arguments)
+        acols = np.concatenate([np.arange(G_off, G_off + ell, dtype=np.int32),
+                                np.arange(H_off, H_off + 4, dtype=np.int32)])
+        gcols = np.concatenate([np.arange(G_off, G_off + ell, dtype=np.int32),
+                                np.array([H_off, H_off + 1, Gt_idx, Gu_idx],
+                                         np.int32)])
+        tcols = [np.concatenate([np.arange(t, t + ell, dtype=np.int32),
+                                 np.array([INF, INF, H_idx, INF], np.int32)])
+                 for t in t_off]
+        ucols = [np.concatenate([np.arange(u, u + ell, dtype=np.int32),
+                                 np.array([INF, INF, INF, H_idx], np.int32)])
+                 for u in u_off]
+        rounds = _round_maps(n)
 
-    # ---- per-proof host state ---------------------------------------------
-    # RNG draws happen here in the exact sequential order (they depend on
-    # nothing downstream): a_blinders(2), c_blinders(4), ipa_r(n),
-    # ipa_z(n-2), r_t, r_u, r_a, r_b, r_k, msm_r(n).
-    ts: list[Transcript] = []
-    vec_a_l: list[list[int]] = []
-    a_perm_l: list[list[int]] = []
-    tu_bodies: list[tuple[bytes, bytes]] = []
-    dr: list[dict] = []
-    for inst in insts:
-        t = Transcript(b"curdleproofs")
-        for vec in (inst.vec_R, inst.vec_S, inst.vec_T, inst.vec_U):
-            t.append_point_vec(b"curdleproofs_step1", vec)
-        # keep the joined T/U bodies for the same-msm step-1 appends (the
-        # transcript's payload memo is bounded and would recompute them)
-        tu_bodies.append((_points_payload(inst.vec_T)[8:],
-                          _points_payload(inst.vec_U)[8:]))
-        t.append_point(b"curdleproofs_step1", inst.M)
-        vec_a = t.get_and_append_challenges(b"curdleproofs_vec_a", ell)
-        ts.append(t)
-        vec_a_l.append(vec_a)
-        a_perm_l.append(get_permutation(vec_a, inst.permutation))
-        g = inst.rng
-        dr.append(dict(
-            a_blinders=[g.rand_fr() for _ in range(N_BLINDERS - 2)],
-            c_blinders=[g.rand_fr() for _ in range(N_BLINDERS)],
-            ipa_r=[g.rand_fr() for _ in range(n)],
-            ipa_z=[g.rand_fr() for _ in range(n - 2)],
-            r_t=g.rand_fr(), r_u=g.rand_fr(),
-            r_a=g.rand_fr(), r_b=g.rand_fr(), r_k=g.rand_fr(),
-            msm_r=[g.rand_fr() for _ in range(n)]))
+        # ---- per-proof host state -------------------------------------------
+        # RNG draws happen here in the exact sequential order (they depend on
+        # nothing downstream): a_blinders(2), c_blinders(4), ipa_r(n),
+        # ipa_z(n-2), r_t, r_u, r_a, r_b, r_k, msm_r(n).
+        ts: list[Transcript] = []
+        vec_a_l: list[list[int]] = []
+        a_perm_l: list[list[int]] = []
+        tu_bodies: list[tuple[bytes, bytes]] = []
+        dr: list[dict] = []
+        for inst in insts:
+            t = Transcript(b"curdleproofs")
+            for vec in (inst.vec_R, inst.vec_S, inst.vec_T, inst.vec_U):
+                t.append_point_vec(b"curdleproofs_step1", vec)
+            # keep the joined T/U bodies for the same-msm step-1 appends (the
+            # transcript's payload memo is bounded and would recompute them)
+            tu_bodies.append((_points_payload(inst.vec_T)[8:],
+                              _points_payload(inst.vec_U)[8:]))
+            t.append_point(b"curdleproofs_step1", inst.M)
+            vec_a = t.get_and_append_challenges(b"curdleproofs_vec_a", ell)
+            ts.append(t)
+            vec_a_l.append(vec_a)
+            a_perm_l.append(get_permutation(vec_a, inst.permutation))
+            g = inst.rng
+            dr.append(dict(
+                a_blinders=[g.rand_fr() for _ in range(N_BLINDERS - 2)],
+                c_blinders=[g.rand_fr() for _ in range(N_BLINDERS)],
+                ipa_r=[g.rand_fr() for _ in range(n)],
+                ipa_z=[g.rand_fr() for _ in range(n - 2)],
+                r_t=g.rand_fr(), r_u=g.rand_fr(),
+                r_a=g.rand_fr(), r_b=g.rand_fr(), r_k=g.rand_fr(),
+                msm_r=[g.rand_fr() for _ in range(n)]))
 
-    # ---- dispatch 1: A commitments + R-hat/S-hat --------------------------
-    rels = []
-    for b in range(B):
-        a_raw = ints_to_raw(vec_a_l[b])
-        rels.append((acols, ints_to_raw(
-            a_perm_l[b] + dr[b]["a_blinders"] + [0, 0])))
-        rels.append((np.arange(r_off[b], r_off[b] + ell, dtype=np.int32),
-                     a_raw))
-        rels.append((np.arange(s_off[b], s_off[b] + ell, dtype=np.int32),
-                     a_raw))
-    d1 = disp.run(rels)
-    A_l = [d1[3 * b] for b in range(B)]
-    Rhat = [d1[3 * b + 1] for b in range(B)]
-    Shat = [d1[3 * b + 2] for b in range(B)]
+        # ---- dispatch 1: A commitments + R-hat/S-hat ------------------------
+        rels = []
+        for b in range(B):
+            a_raw = ints_to_raw(vec_a_l[b])
+            rels.append((acols, ints_to_raw(
+                a_perm_l[b] + dr[b]["a_blinders"] + [0, 0])))
+            rels.append((np.arange(r_off[b], r_off[b] + ell, dtype=np.int32),
+                         a_raw))
+            rels.append((np.arange(s_off[b], s_off[b] + ell, dtype=np.int32),
+                         a_raw))
+        d1 = disp.run(rels)
+        A_l = [d1[3 * b] for b in range(B)]
+        Rhat = [d1[3 * b + 1] for b in range(B)]
+        Shat = [d1[3 * b + 2] for b in range(B)]
 
-    # ---- same-permutation + grand-product setup (host) --------------------
-    B_l, gprod_l, factors_l, bb_l = [], [], [], []
-    for b in range(B):
-        t = ts[b]
-        t.append_points(b"same_perm_step1", [A_l[b], insts[b].M])
-        t.append_fr_vec(b"same_perm_step1", vec_a_l[b])
-        alpha = t.get_and_append_challenge(b"same_perm_alpha")
-        beta = t.get_and_append_challenge(b"same_perm_beta")
-        perm = insts[b].permutation
-        factors = [(a + m * alpha + beta) % R
-                   for a, m in zip(a_perm_l[b], perm)]
-        gp = 1
-        for f in factors:
-            gp = gp * f % R
-        B_pt = A_l[b].add(_msm3([insts[b].M, crs.G_sum], [alpha, beta]))
-        r_a_prime = dr[b]["a_blinders"] + [0, 0]
-        vec_b_blinders = [(r_a_prime[i] + alpha * insts[b].vec_m_blinders[i])
-                          % R for i in range(N_BLINDERS)]
-        t.append_point(b"gprod_step1", B_pt)
-        t.append_fr(b"gprod_step1", gp)
-        dr[b]["gp_alpha"] = t.get_and_append_challenge(b"gprod_alpha")
-        B_l.append(B_pt)
-        gprod_l.append(gp)
-        factors_l.append(factors)
-        bb_l.append(vec_b_blinders)
+        # ---- same-permutation + grand-product setup (host) ------------------
+        B_l, gprod_l, factors_l, bb_l = [], [], [], []
+        for b in range(B):
+            t = ts[b]
+            t.append_points(b"same_perm_step1", [A_l[b], insts[b].M])
+            t.append_fr_vec(b"same_perm_step1", vec_a_l[b])
+            alpha = t.get_and_append_challenge(b"same_perm_alpha")
+            beta = t.get_and_append_challenge(b"same_perm_beta")
+            perm = insts[b].permutation
+            factors = [(a + m * alpha + beta) % R
+                       for a, m in zip(a_perm_l[b], perm)]
+            gp = 1
+            for f in factors:
+                gp = gp * f % R
+            B_pt = A_l[b].add(_msm3([insts[b].M, crs.G_sum], [alpha, beta]))
+            r_a_prime = dr[b]["a_blinders"] + [0, 0]
+            m_blinders = insts[b].vec_m_blinders
+            vec_b_blinders = [(r_a_prime[i] + alpha * m_blinders[i]) % R
+                              for i in range(N_BLINDERS)]
+            t.append_point(b"gprod_step1", B_pt)
+            t.append_fr(b"gprod_step1", gp)
+            dr[b]["gp_alpha"] = t.get_and_append_challenge(b"gprod_alpha")
+            B_l.append(B_pt)
+            gprod_l.append(gp)
+            factors_l.append(factors)
+            bb_l.append(vec_b_blinders)
 
-    # ---- dispatch 2: grand-product C commitments --------------------------
-    vec_c_l = []
-    factors_raw_l = []
-    rels = []
-    for b in range(B):
-        # vec_c = exclusive prefix products of the factors (native chain)
-        factors_raw = ints_to_raw(factors_l[b])
-        vec_c_raw = fr_prefix_prod(factors_raw)
-        factors_raw_l.append(factors_raw)
-        vec_c_l.append(vec_c_raw)
-        rels.append((acols,
-                     vec_c_raw + ints_to_raw(dr[b]["c_blinders"])))
-    C_l = disp.run(rels)
+        # ---- dispatch 2: grand-product C commitments ------------------------
+        vec_c_l = []
+        factors_raw_l = []
+        rels = []
+        for b in range(B):
+            # vec_c = exclusive prefix products of the factors (native chain)
+            factors_raw = ints_to_raw(factors_l[b])
+            vec_c_raw = fr_prefix_prod(factors_raw)
+            factors_raw_l.append(factors_raw)
+            vec_c_l.append(vec_c_raw)
+            rels.append((acols,
+                         vec_c_raw + ints_to_raw(dr[b]["c_blinders"])))
+        C_l = disp.run(rels)
 
-    # ---- grand-product step 2/3 (host) + IPA witness ----------------------
-    one32 = (1).to_bytes(32, "little")
-    ones_ell = one32 * ell
-    ipa_state: list[dict] = []
-    for b in range(B):
-        t, d = ts[b], dr[b]
-        alpha = d["gp_alpha"]
-        rbpa = [(r + alpha) % R for r in bb_l[b]]
-        r_p = inner_product(rbpa, d["c_blinders"])
-        t.append_point(b"gprod_step2", C_l[b])
-        t.append_fr(b"gprod_step2", r_p)
-        beta = t.get_and_append_challenge(b"gprod_beta")
-        beta_inv = fr_inv(beta)
+        # ---- grand-product step 2/3 (host) + IPA witness --------------------
+        one32 = (1).to_bytes(32, "little")
+        ones_ell = one32 * ell
+        ipa_state: list[dict] = []
+        for b in range(B):
+            t, d = ts[b], dr[b]
+            alpha = d["gp_alpha"]
+            rbpa = [(r + alpha) % R for r in bb_l[b]]
+            r_p = inner_product(rbpa, d["c_blinders"])
+            t.append_point(b"gprod_step2", C_l[b])
+            t.append_fr(b"gprod_step2", r_p)
+            beta = t.get_and_append_challenge(b"gprod_beta")
+            beta_inv = fr_inv(beta)
 
-        u_raw = fr_powers_raw(beta_inv, ell + 1)
-        u_raw = u_raw[:32 * ell] + u_raw[32 * ell: 32 * (ell + 1)] * N_BLINDERS
+            u_raw = fr_powers_raw(beta_inv, ell + 1)
+            u_raw = (u_raw[:32 * ell]
+                     + u_raw[32 * ell: 32 * (ell + 1)] * N_BLINDERS)
 
-        # vec_d[i] = f_i*beta^(i+1) - beta^i = beta^i * (beta*f_i - 1):
-        # three native chains instead of 3*ell python bigint muls
-        bf = fr_scale_raw(beta, factors_raw_l[b])
-        bf_m1 = fr_axpy(R - 1, bf, ones_ell)               # beta*f - 1
-        excl_pows = one32 + fr_powers_raw(beta, ell - 1)   # [1, b, .., b^l-1]
-        vec_d_raw = fr_mul_vec(bf_m1, excl_pows)
-        beta_ell1 = fr_pow(beta, ell + 1)
-        vec_d_blinders = [beta_ell1 * f % R for f in rbpa]
-        D_pt = _msm3([B_l[b], crs.G_sum, crs.H_sum],
-                     [1, (-beta_inv) % R, alpha])
-        inner_prod = (r_p * beta_ell1
-                      + gprod_l[b] * fr_pow(beta, ell) - 1) % R
+            # vec_d[i] = f_i*beta^(i+1) - beta^i = beta^i * (beta*f_i - 1):
+            # three native chains instead of 3*ell python bigint muls
+            bf = fr_scale_raw(beta, factors_raw_l[b])
+            bf_m1 = fr_axpy(R - 1, bf, ones_ell)               # beta*f - 1
+            # [1, b, .., b^l-1]
+            excl_pows = one32 + fr_powers_raw(beta, ell - 1)
+            vec_d_raw = fr_mul_vec(bf_m1, excl_pows)
+            beta_ell1 = fr_pow(beta, ell + 1)
+            vec_d_blinders = [beta_ell1 * f % R for f in rbpa]
+            D_pt = _msm3([B_l[b], crs.G_sum, crs.H_sum],
+                         [1, (-beta_inv) % R, alpha])
+            inner_prod = (r_p * beta_ell1
+                          + gprod_l[b] * fr_pow(beta, ell) - 1) % R
 
-        c_full_raw = vec_c_l[b] + ints_to_raw(d["c_blinders"])
-        d_full_raw = vec_d_raw + ints_to_raw(vec_d_blinders)
-        rc_raw = ints_to_raw(d["ipa_r"])
-        z_raw = ints_to_raw(d["ipa_z"])
-        # the 2x2 blinder solve (reference inner_product_argument.rs:42-82)
-        # over native inner products
-        omega = (fr_inner2(rc_raw, d_full_raw, n)[0]
-                 + fr_inner2(z_raw, c_full_raw[: 32 * (n - 2)], n - 2)[0]) % R
-        delta = fr_inner2(rc_raw[: 32 * (n - 2)], z_raw, n - 2)[0]
-        c_nm2 = int.from_bytes(c_full_raw[32 * (n - 2): 32 * (n - 1)],
-                               "little")
-        c_nm1 = int.from_bytes(c_full_raw[32 * (n - 1):], "little")
-        r_nm2, r_nm1 = d["ipa_r"][n - 2], d["ipa_r"][n - 1]
-        inv_c = fr_inv(c_nm2)
-        denom = (-r_nm2 * inv_c % R * c_nm1 + r_nm1) % R
-        last_z = ((r_nm2 * inv_c % R * omega - delta) % R
-                  * fr_inv(denom) % R)
-        penult_z = -inv_c * ((last_z * c_nm1 + omega) % R) % R
-        rd_raw = (z_raw + penult_z.to_bytes(32, "little")
-                  + last_z.to_bytes(32, "little"))
-        ipa_state.append(dict(
-            u=u_raw, D=D_pt, z=inner_prod, r_p=r_p,
-            c=c_full_raw, d=d_full_raw, rc=rc_raw, rd=rd_raw))
+            c_full_raw = vec_c_l[b] + ints_to_raw(d["c_blinders"])
+            d_full_raw = vec_d_raw + ints_to_raw(vec_d_blinders)
+            rc_raw = ints_to_raw(d["ipa_r"])
+            z_raw = ints_to_raw(d["ipa_z"])
+            # the 2x2 blinder solve (reference inner_product_argument.rs:42-82)
+            # over native inner products
+            omega = (fr_inner2(rc_raw, d_full_raw, n)[0]
+                     + fr_inner2(z_raw, c_full_raw[: 32 * (n - 2)],
+                                 n - 2)[0]) % R
+            delta = fr_inner2(rc_raw[: 32 * (n - 2)], z_raw, n - 2)[0]
+            c_nm2 = int.from_bytes(c_full_raw[32 * (n - 2): 32 * (n - 1)],
+                                   "little")
+            c_nm1 = int.from_bytes(c_full_raw[32 * (n - 1):], "little")
+            r_nm2, r_nm1 = d["ipa_r"][n - 2], d["ipa_r"][n - 1]
+            inv_c = fr_inv(c_nm2)
+            denom = (-r_nm2 * inv_c % R * c_nm1 + r_nm1) % R
+            last_z = ((r_nm2 * inv_c % R * omega - delta) % R
+                      * fr_inv(denom) % R)
+            penult_z = -inv_c * ((last_z * c_nm1 + omega) % R) % R
+            rd_raw = (z_raw + penult_z.to_bytes(32, "little")
+                      + last_z.to_bytes(32, "little"))
+            ipa_state.append(dict(
+                u=u_raw, D=D_pt, z=inner_prod, r_p=r_p,
+                c=c_full_raw, d=d_full_raw, rc=rc_raw, rd=rd_raw))
 
-    # ---- dispatch 3: IPA blinder commitments B_c, B_d ---------------------
-    rels = []
-    for b in range(B):
-        st = ipa_state[b]
-        rels.append((acols, st["rc"]))
-        rels.append((acols, fr_mul_vec(st["rd"], st["u"])))
-    d3 = disp.run(rels)
-    for b in range(B):
-        st = ipa_state[b]
-        st["B_c"], st["B_d"] = d3[2 * b], d3[2 * b + 1]
-        t = ts[b]
-        t.append_points(b"ipa_step1", [C_l[b], st["D"]])
-        t.append_fr(b"ipa_step1", st["z"])
-        t.append_points(b"ipa_step1", [st["B_c"], st["B_d"]])
-        alpha = t.get_and_append_challenge(b"ipa_alpha")
-        st["beta"] = t.get_and_append_challenge(b"ipa_beta")
-        st["c"] = fr_axpy(alpha, st["rc"], st["c"])
-        st["d"] = fr_axpy(alpha, st["rd"], st["d"])
-        st["wC"] = st["wD"] = (1).to_bytes(32, "little")
-        st["L"] = dict(L_C=[], L_D=[], R_C=[], R_D=[])
+        # ---- dispatch 3: IPA blinder commitments B_c, B_d -------------------
+        rels = []
+        for b in range(B):
+            st = ipa_state[b]
+            rels.append((acols, st["rc"]))
+            rels.append((acols, fr_mul_vec(st["rd"], st["u"])))
+        d3 = disp.run(rels)
+        for b in range(B):
+            st = ipa_state[b]
+            st["B_c"], st["B_d"] = d3[2 * b], d3[2 * b + 1]
+            t = ts[b]
+            t.append_points(b"ipa_step1", [C_l[b], st["D"]])
+            t.append_fr(b"ipa_step1", st["z"])
+            t.append_points(b"ipa_step1", [st["B_c"], st["B_d"]])
+            alpha = t.get_and_append_challenge(b"ipa_alpha")
+            st["beta"] = t.get_and_append_challenge(b"ipa_beta")
+            st["c"] = fr_axpy(alpha, st["rc"], st["c"])
+            st["d"] = fr_axpy(alpha, st["rd"], st["d"])
+            st["wC"] = st["wD"] = (1).to_bytes(32, "little")
+            st["L"] = dict(L_C=[], L_D=[], R_C=[], R_D=[])
 
     # ---- IPA folding rounds: one grouped dispatch per round ---------------
-    h_col = np.array([H_idx], np.int32)
-    for k in range(lg_n):
-        posL, posR = rounds[k]
-        half = (n >> k) // 2
-        rels = []
-        for b in range(B):
-            st = ipa_state[b]
-            c, d = st["c"], st["d"]
-            c_L, c_R = c[: 32 * half], c[32 * half:]
-            d_L, d_R = d[: 32 * half], d[32 * half:]
-            ipL, ipR = fr_inner2(c_L + c_R, d_R + d_L, half)
-            st["ips"] = (ipL, ipR)
-            beta = st["beta"]
-            u = st["u"]
-            uL = _gather32(u, posL)
-            uR = _gather32(u, posR)
-            rels.append((np.concatenate([acols[posR], h_col]),
-                         fr_outer(c_L, st["wC"])
-                         + (beta * ipL % R).to_bytes(32, "little")))
-            rels.append((acols[posL],
-                         fr_mul_vec(fr_outer(d_R, st["wD"]), uL)))
-            rels.append((np.concatenate([acols[posL], h_col]),
-                         fr_outer(c_R, st["wC"])
-                         + (beta * ipR % R).to_bytes(32, "little")))
-            rels.append((acols[posR],
-                         fr_mul_vec(fr_outer(d_L, st["wD"]), uR)))
-        pts = disp.run(rels)
-        for b in range(B):
-            st = ipa_state[b]
-            L_C, L_D, R_C, R_D = pts[4 * b: 4 * b + 4]
-            st["L"]["L_C"].append(L_C)
-            st["L"]["L_D"].append(L_D)
-            st["L"]["R_C"].append(R_C)
-            st["L"]["R_D"].append(R_D)
-            t = ts[b]
-            t.append_points(b"ipa_loop", [L_C, L_D, R_C, R_D])
-            gamma = t.get_and_append_challenge(b"ipa_gamma")
-            gamma_inv = fr_inv(gamma)
-            c, d = st["c"], st["d"]
-            st["c"] = fr_axpy(gamma_inv, c[: 32 * half], c[32 * half:])
-            st["d"] = fr_axpy(gamma, d[: 32 * half], d[32 * half:])
-            st["wC"] = _interleave(st["wC"], fr_scale_raw(gamma, st["wC"]))
-            st["wD"] = _interleave(st["wD"],
-                                   fr_scale_raw(gamma_inv, st["wD"]))
+    with span("prove.ipa_rounds"):
+        h_col = np.array([H_idx], np.int32)
+        for k in range(lg_n):
+            posL, posR = rounds[k]
+            half = (n >> k) // 2
+            rels = []
+            for b in range(B):
+                st = ipa_state[b]
+                c, d = st["c"], st["d"]
+                c_L, c_R = c[: 32 * half], c[32 * half:]
+                d_L, d_R = d[: 32 * half], d[32 * half:]
+                ipL, ipR = fr_inner2(c_L + c_R, d_R + d_L, half)
+                st["ips"] = (ipL, ipR)
+                beta = st["beta"]
+                u = st["u"]
+                uL = _gather32(u, posL)
+                uR = _gather32(u, posR)
+                rels.append((np.concatenate([acols[posR], h_col]),
+                             fr_outer(c_L, st["wC"])
+                             + (beta * ipL % R).to_bytes(32, "little")))
+                rels.append((acols[posL],
+                             fr_mul_vec(fr_outer(d_R, st["wD"]), uL)))
+                rels.append((np.concatenate([acols[posL], h_col]),
+                             fr_outer(c_R, st["wC"])
+                             + (beta * ipR % R).to_bytes(32, "little")))
+                rels.append((acols[posR],
+                             fr_mul_vec(fr_outer(d_L, st["wD"]), uR)))
+            pts = disp.run(rels)
+            for b in range(B):
+                st = ipa_state[b]
+                L_C, L_D, R_C, R_D = pts[4 * b: 4 * b + 4]
+                st["L"]["L_C"].append(L_C)
+                st["L"]["L_D"].append(L_D)
+                st["L"]["R_C"].append(R_C)
+                st["L"]["R_D"].append(R_D)
+                t = ts[b]
+                t.append_points(b"ipa_loop", [L_C, L_D, R_C, R_D])
+                gamma = t.get_and_append_challenge(b"ipa_gamma")
+                gamma_inv = fr_inv(gamma)
+                c, d = st["c"], st["d"]
+                st["c"] = fr_axpy(gamma_inv, c[: 32 * half], c[32 * half:])
+                st["d"] = fr_axpy(gamma, d[: 32 * half], d[32 * half:])
+                st["wC"] = _interleave(st["wC"], fr_scale_raw(gamma, st["wC"]))
+                st["wD"] = _interleave(st["wD"],
+                                       fr_scale_raw(gamma_inv, st["wD"]))
 
-    ipa_proofs = []
-    for b in range(B):
-        st = ipa_state[b]
-        L = st["L"]
-        ipa_proofs.append(InnerProductProof(
-            st["B_c"], st["B_d"], L["L_C"], L["R_C"], L["L_D"], L["R_D"],
-            int.from_bytes(st["c"], "little"),
-            int.from_bytes(st["d"], "little")))
+        ipa_proofs = []
+        for b in range(B):
+            st = ipa_state[b]
+            L = st["L"]
+            ipa_proofs.append(InnerProductProof(
+                st["B_c"], st["B_d"], L["L_C"], L["R_C"], L["L_D"], L["R_D"],
+                int.from_bytes(st["c"], "little"),
+                int.from_bytes(st["d"], "little")))
 
     # ---- step 3: same-scalar sigma protocol (host GLV batch) --------------
-    jobs = []
-    for b in range(B):
-        d = dr[b]
-        k_s = insts[b].k
-        # order: [k*Rhat, k*Shat, r_k*Rhat, r_k*Shat,
-        #         r_t*G_t, r_u*G_u, r_a*G_t, r_b*G_u,
-        #         r_t*H, r_u*H, r_a*H, r_b*H]
-        jobs.extend([(Rhat[b], k_s), (Shat[b], k_s),
-                     (Rhat[b], d["r_k"]), (Shat[b], d["r_k"]),
-                     (crs.G_t, d["r_t"]), (crs.G_u, d["r_u"]),
-                     (crs.G_t, d["r_a"]), (crs.G_u, d["r_b"]),
-                     (crs.H, d["r_t"]), (crs.H, d["r_u"]),
-                     (crs.H, d["r_a"]), (crs.H, d["r_b"])])
-    muls = _batch_mul_each([p for p, _ in jobs], [s for _, s in jobs])
+    with span("prove.same_scalar"):
+        jobs = []
+        for b in range(B):
+            d = dr[b]
+            k_s = insts[b].k
+            # order: [k*Rhat, k*Shat, r_k*Rhat, r_k*Shat,
+            #         r_t*G_t, r_u*G_u, r_a*G_t, r_b*G_u,
+            #         r_t*H, r_u*H, r_a*H, r_b*H]
+            jobs.extend([(Rhat[b], k_s), (Shat[b], k_s),
+                         (Rhat[b], d["r_k"]), (Shat[b], d["r_k"]),
+                         (crs.G_t, d["r_t"]), (crs.G_u, d["r_u"]),
+                         (crs.G_t, d["r_a"]), (crs.G_u, d["r_b"]),
+                         (crs.H, d["r_t"]), (crs.H, d["r_u"]),
+                         (crs.H, d["r_a"]), (crs.H, d["r_b"])])
+        muls = _batch_mul_each([p for p, _ in jobs], [s for _, s in jobs])
 
-    samescalar_l, cm_T_l, cm_U_l = [], [], []
-    for b in range(B):
-        m = muls[12 * b: 12 * b + 12]
-        cm_T = GroupCommitment(m[4], m[0].add(m[8]))
-        cm_U = GroupCommitment(m[5], m[1].add(m[9]))
-        cm_A = GroupCommitment(m[6], m[2].add(m[10]))
-        cm_B = GroupCommitment(m[7], m[3].add(m[11]))
-        t, d = ts[b], dr[b]
-        t.append_points(b"sameexp_points", [
-            Rhat[b], Shat[b], cm_T.T_1, cm_T.T_2, cm_U.T_1, cm_U.T_2,
-            cm_A.T_1, cm_A.T_2, cm_B.T_1, cm_B.T_2])
-        alpha = t.get_and_append_challenge(b"same_scalar_alpha")
-        samescalar_l.append(SameScalarProof(
-            cm_A, cm_B,
-            (d["r_k"] + insts[b].k * alpha) % R,
-            (d["r_a"] + d["r_t"] * alpha) % R,
-            (d["r_b"] + d["r_u"] * alpha) % R))
-        cm_T_l.append(cm_T)
-        cm_U_l.append(cm_U)
+        samescalar_l, cm_T_l, cm_U_l = [], [], []
+        for b in range(B):
+            m = muls[12 * b: 12 * b + 12]
+            cm_T = GroupCommitment(m[4], m[0].add(m[8]))
+            cm_U = GroupCommitment(m[5], m[1].add(m[9]))
+            cm_A = GroupCommitment(m[6], m[2].add(m[10]))
+            cm_B = GroupCommitment(m[7], m[3].add(m[11]))
+            t, d = ts[b], dr[b]
+            t.append_points(b"sameexp_points", [
+                Rhat[b], Shat[b], cm_T.T_1, cm_T.T_2, cm_U.T_1, cm_U.T_2,
+                cm_A.T_1, cm_A.T_2, cm_B.T_1, cm_B.T_2])
+            alpha = t.get_and_append_challenge(b"same_scalar_alpha")
+            samescalar_l.append(SameScalarProof(
+                cm_A, cm_B,
+                (d["r_k"] + insts[b].k * alpha) % R,
+                (d["r_a"] + d["r_t"] * alpha) % R,
+                (d["r_b"] + d["r_u"] * alpha) % R))
+            cm_T_l.append(cm_T)
+            cm_U_l.append(cm_U)
 
     # ---- step 4: same-multiscalar argument ---------------------------------
-    rels = []
-    for b in range(B):
-        r_raw = ints_to_raw(dr[b]["msm_r"])
-        rels.append((gcols, r_raw))
-        rels.append((tcols[b], r_raw))
-        rels.append((ucols[b], r_raw))
-    d4 = disp.run(rels)
-
-    from ..host.serde import g1_to_bytes, vec_len_prefix
-
-    inf_b = g1_to_bytes(G1.infinity())
-    h_b = g1_to_bytes(crs.H)
-    sm_state = []
-    for b in range(B):
-        t, d = ts[b], dr[b]
-        A_prime = A_l[b].add(cm_T_l[b].T_1).add(cm_U_l[b].T_1)
-        B_a, B_t, B_u = d4[3 * b: 3 * b + 3]
-        # T/U-with-blinders payloads from the step-1 joined bodies (strip
-        # the u64 length prefix, append the 4 fixed blinder columns) — the
-        # byte stream is identical to append_point_vec on the built lists
-        body_T, body_U = tu_bodies[b]
-        t.append_points(b"same_msm_step1",
-                        [A_prime, cm_T_l[b].T_2, cm_U_l[b].T_2])
-        t.append_message(b"same_msm_step1", vec_len_prefix(n) + body_T
-                         + inf_b + inf_b + h_b + inf_b)
-        t.append_message(b"same_msm_step1", vec_len_prefix(n) + body_U
-                         + inf_b + inf_b + inf_b + h_b)
-        t.append_points(b"same_msm_step1", [B_a, B_t, B_u])
-        alpha = t.get_and_append_challenge(b"same_msm_alpha")
-        vec_x = a_perm_l[b] + d["a_blinders"] + [d["r_t"], d["r_u"]]
-        x = fr_axpy(alpha, ints_to_raw(d["msm_r"]), ints_to_raw(vec_x))
-        sm_state.append(dict(
-            x=x, w=(1).to_bytes(32, "little"), B=(B_a, B_t, B_u),
-            L=dict(L_A=[], L_T=[], L_U=[], R_A=[], R_T=[], R_U=[])))
-
-    for k in range(lg_n):
-        posL, posR = rounds[k]
-        half = (n >> k) // 2
+    with span("prove.msm_rounds"):
         rels = []
         for b in range(B):
-            st = sm_state[b]
-            x = st["x"]
-            sL = fr_outer(x[: 32 * half], st["w"])
-            sR = fr_outer(x[32 * half:], st["w"])
-            rels.append((gcols[posR], sL))
-            rels.append((tcols[b][posR], sL))
-            rels.append((ucols[b][posR], sL))
-            rels.append((gcols[posL], sR))
-            rels.append((tcols[b][posL], sR))
-            rels.append((ucols[b][posL], sR))
-        pts = disp.run(rels)
+            r_raw = ints_to_raw(dr[b]["msm_r"])
+            rels.append((gcols, r_raw))
+            rels.append((tcols[b], r_raw))
+            rels.append((ucols[b], r_raw))
+        d4 = disp.run(rels)
+
+        from ..host.serde import g1_to_bytes, vec_len_prefix
+
+        inf_b = g1_to_bytes(G1.infinity())
+        h_b = g1_to_bytes(crs.H)
+        sm_state = []
         for b in range(B):
-            st = sm_state[b]
-            L_A, L_T, L_U, R_A, R_T, R_U = pts[6 * b: 6 * b + 6]
-            for key, p in zip(("L_A", "L_T", "L_U", "R_A", "R_T", "R_U"),
-                              (L_A, L_T, L_U, R_A, R_T, R_U)):
-                st["L"][key].append(p)
-            t = ts[b]
-            t.append_points(b"same_msm_loop",
-                            [L_A, L_T, L_U, R_A, R_T, R_U])
-            gamma = t.get_and_append_challenge(b"same_msm_gamma")
-            x = st["x"]
-            st["x"] = fr_axpy(fr_inv(gamma), x[: 32 * half], x[32 * half:])
-            st["w"] = _interleave(st["w"], fr_scale_raw(gamma, st["w"]))
+            t, d = ts[b], dr[b]
+            A_prime = A_l[b].add(cm_T_l[b].T_1).add(cm_U_l[b].T_1)
+            B_a, B_t, B_u = d4[3 * b: 3 * b + 3]
+            # T/U-with-blinders payloads from the step-1 joined bodies (strip
+            # the u64 length prefix, append the 4 fixed blinder columns) — the
+            # byte stream is identical to append_point_vec on the built lists
+            body_T, body_U = tu_bodies[b]
+            t.append_points(b"same_msm_step1",
+                            [A_prime, cm_T_l[b].T_2, cm_U_l[b].T_2])
+            t.append_message(b"same_msm_step1", vec_len_prefix(n) + body_T
+                             + inf_b + inf_b + h_b + inf_b)
+            t.append_message(b"same_msm_step1", vec_len_prefix(n) + body_U
+                             + inf_b + inf_b + inf_b + h_b)
+            t.append_points(b"same_msm_step1", [B_a, B_t, B_u])
+            alpha = t.get_and_append_challenge(b"same_msm_alpha")
+            vec_x = a_perm_l[b] + d["a_blinders"] + [d["r_t"], d["r_u"]]
+            x = fr_axpy(alpha, ints_to_raw(d["msm_r"]), ints_to_raw(vec_x))
+            sm_state.append(dict(
+                x=x, w=(1).to_bytes(32, "little"), B=(B_a, B_t, B_u),
+                L=dict(L_A=[], L_T=[], L_U=[], R_A=[], R_T=[], R_U=[])))
+
+        for k in range(lg_n):
+            posL, posR = rounds[k]
+            half = (n >> k) // 2
+            rels = []
+            for b in range(B):
+                st = sm_state[b]
+                x = st["x"]
+                sL = fr_outer(x[: 32 * half], st["w"])
+                sR = fr_outer(x[32 * half:], st["w"])
+                rels.append((gcols[posR], sL))
+                rels.append((tcols[b][posR], sL))
+                rels.append((ucols[b][posR], sL))
+                rels.append((gcols[posL], sR))
+                rels.append((tcols[b][posL], sR))
+                rels.append((ucols[b][posL], sR))
+            pts = disp.run(rels)
+            for b in range(B):
+                st = sm_state[b]
+                L_A, L_T, L_U, R_A, R_T, R_U = pts[6 * b: 6 * b + 6]
+                for key, p in zip(("L_A", "L_T", "L_U", "R_A", "R_T", "R_U"),
+                                  (L_A, L_T, L_U, R_A, R_T, R_U)):
+                    st["L"][key].append(p)
+                t = ts[b]
+                t.append_points(b"same_msm_loop",
+                                [L_A, L_T, L_U, R_A, R_T, R_U])
+                gamma = t.get_and_append_challenge(b"same_msm_gamma")
+                x = st["x"]
+                st["x"] = fr_axpy(fr_inv(gamma), x[: 32 * half], x[32 * half:])
+                st["w"] = _interleave(st["w"], fr_scale_raw(gamma, st["w"]))
 
     # ---- assemble -----------------------------------------------------------
-    proofs = []
-    for b in range(B):
-        st = sm_state[b]
-        L = st["L"]
-        same_msm = SameMultiscalarProof(
-            *st["B"], L["L_A"], L["L_T"], L["L_U"],
-            L["R_A"], L["R_T"], L["R_U"],
-            int.from_bytes(st["x"], "little"))
-        gp = GrandProductProof(C_l[b], _rp_of(ipa_state[b]), ipa_proofs[b])
-        proofs.append(CurdleproofsProof(
-            A_l[b], cm_T_l[b], cm_U_l[b], Rhat[b], Shat[b],
-            SamePermutationProof(B_l[b], gp), samescalar_l[b], same_msm))
-    t = disp.timings
-    t["wave_s"] = time.perf_counter() - t_wave
-    t["host_other_s"] = t["wave_s"] - sum(
-        t.get(k, 0.0) for k in ("bases_s", "pack_s", "device_s", "decode_s"))
-    batch_prove.last_timings = dict(t)  # bench/debug visibility
+    with span("prove.assemble"):
+        proofs = []
+        for b in range(B):
+            st = sm_state[b]
+            L = st["L"]
+            same_msm = SameMultiscalarProof(
+                *st["B"], L["L_A"], L["L_T"], L["L_U"],
+                L["R_A"], L["R_T"], L["R_U"],
+                int.from_bytes(st["x"], "little"))
+            gp = GrandProductProof(C_l[b], _rp_of(ipa_state[b]), ipa_proofs[b])
+            proofs.append(CurdleproofsProof(
+                A_l[b], cm_T_l[b], cm_U_l[b], Rhat[b], Shat[b],
+                SamePermutationProof(B_l[b], gp), samescalar_l[b], same_msm))
     return proofs
 
 

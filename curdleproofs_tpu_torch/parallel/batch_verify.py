@@ -26,6 +26,7 @@ from ..errors import VerificationError
 from ..host.rng import StdRng
 from ..msm_accumulator import MsmAccumulator
 from ..ops.backend import active_device
+from ..utils.trace import span
 
 __all__ = ["batch_verify", "ShuffleInstance", "plan_split_fraction"]
 
@@ -139,10 +140,7 @@ def _batch_verify_streamed(
                 acc = host_acc
             t0 = time.perf_counter()
             for i in range(off, min(off + chunk, len(proofs))):
-                inst = instances[i]
-                proofs[i].verify_with_accumulator(
-                    crs, inst.vec_R, inst.vec_S, inst.vec_T, inst.vec_U,
-                    inst.M, acc, rng)
+                _replay(crs, instances[i], proofs[i], acc, rng)
             replay_s = time.perf_counter() - t0
             replay_total += replay_s
             if to_device:
@@ -186,17 +184,27 @@ def _batch_verify_streamed(
     return total is not None and total.is_infinity()
 
 
-def _final_check(acc: MsmAccumulator, mesh=None) -> bool:
-    if mesh is None:
-        try:
-            acc.verify()
-            return True
-        except VerificationError:
-            return False
-    from .sharded_msm import sharded_msm
+def _replay(crs, inst: ShuffleInstance, proof: CurdleproofsProof,
+            acc: MsmAccumulator, rng: StdRng) -> None:
+    """One proof's transcript replay into the batch's accumulator."""
+    with span("verify.replay", timeline=False):
+        proof.verify_with_accumulator(crs, inst.vec_R, inst.vec_S,
+                                      inst.vec_T, inst.vec_U, inst.M, acc,
+                                      rng)
 
-    bases, scalars = acc._dedup()
-    return sharded_msm(bases, scalars, mesh).is_infinity()
+
+def _final_check(acc: MsmAccumulator, mesh=None) -> bool:
+    with span("verify.final_check"):
+        if mesh is None:
+            try:
+                acc.verify()
+                return True
+            except VerificationError:
+                return False
+        from .sharded_msm import sharded_msm
+
+        bases, scalars = acc._dedup()
+        return sharded_msm(bases, scalars, mesh).is_infinity()
 
 
 def batch_verify(
@@ -234,10 +242,7 @@ def batch_verify(
         acc = MsmAccumulator()
         try:
             for i in idx:
-                inst = instances[i]
-                proofs[i].verify_with_accumulator(
-                    crs, inst.vec_R, inst.vec_S, inst.vec_T, inst.vec_U,
-                    inst.M, acc, rng)
+                _replay(crs, instances[i], proofs[i], acc, rng)
         except VerificationError:
             # an eagerly-checked sub-argument (same-scalar) already failed;
             # for batch semantics that fails the whole subset

@@ -23,6 +23,7 @@ from .host.serde import (
 )
 from .transcript import Transcript
 from .util import shuffle_permute_and_commit_input
+from .utils.trace import span
 
 __all__ = [
     "WhiskTracker", "WhiskShuffleProof", "TrackerProof",
@@ -167,9 +168,11 @@ class WhiskShuffleProof:
 
 
 def _unzip_trackers(trackers) -> tuple[list[G1], list[G1]]:
-    both = g1_from_bytes_batch([t.r_G for t in trackers]
-                               + [t.k_r_G for t in trackers])
-    return both[: len(trackers)], both[len(trackers) :]
+    n = len(trackers)
+    with span("whisk.unzip_trackers", timeline=False, points=2 * n):
+        both = g1_from_bytes_batch([t.r_G for t in trackers]
+                                   + [t.k_r_G for t in trackers])
+    return both[:n], both[n:]
 
 
 def _zip_trackers(vec_r: list[G1], vec_s: list[G1]) -> list[WhiskTracker]:
@@ -241,17 +244,19 @@ def is_valid_whisk_shuffle_proofs(
     # coordinates, which beats deferring (defer = re-serialize + re-load the
     # points for a separate ladder).  Deferral only wins for the proofs'
     # scattered small point groups, where ONE context spans the segment.
-    instances, proofs = [], []
-    for pre, post, _ in shuffles:
-        vec_r, vec_s = _unzip_trackers(pre)
-        vec_t, vec_u = _unzip_trackers(post)
-        instances.append(ShuffleInstance(vec_r, vec_s, vec_t, vec_u, None))
-    with deferred_subgroup_checks():  # ONE ladder for ~90 x B proof points
-        for inst, (_, _, proof_bytes) in zip(instances, shuffles):
-            wsp = WhiskShuffleProof.deserialize(proof_bytes, crs.log2_n())
-            inst.M = wsp.M
-            proofs.append(wsp.proof)
-    return batch_verify(crs, instances, proofs, rng, identify=identify)
+    with span("whisk.verify_batch", blocks=len(shuffles)):
+        instances, proofs = [], []
+        for pre, post, _ in shuffles:
+            vec_r, vec_s = _unzip_trackers(pre)
+            vec_t, vec_u = _unzip_trackers(post)
+            instances.append(ShuffleInstance(vec_r, vec_s, vec_t, vec_u, None))
+        with span("whisk.proof_bytes"), deferred_subgroup_checks():
+            # ONE ladder for ~90 x B proof points
+            for inst, (_, _, proof_bytes) in zip(instances, shuffles):
+                wsp = WhiskShuffleProof.deserialize(proof_bytes, crs.log2_n())
+                inst.M = wsp.M
+                proofs.append(wsp.proof)
+        return batch_verify(crs, instances, proofs, rng, identify=identify)
 
 
 def generate_whisk_tracker_proof(rng: StdRng, tracker: WhiskTracker,
