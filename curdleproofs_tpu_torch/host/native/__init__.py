@@ -103,9 +103,9 @@ def lib() -> ctypes.CDLL | None:
                                   ctypes.c_uint64, ctypes.c_uint64],
         "cp_g1_decompress_validate": [ctypes.c_char_p, ctypes.c_uint64,
                                       ctypes.c_char_p, ctypes.c_char_p,
-                                      ctypes.c_uint64],
+                                      ctypes.c_uint64, ctypes.c_uint64],
         "cp_subgroup_check": [ctypes.c_char_p, ctypes.c_uint64,
-                              ctypes.c_char_p],
+                              ctypes.c_char_p, ctypes.c_uint64],
         "cp_same_msm_prove_loop": [ctypes.c_char_p, ctypes.c_char_p,
                                    ctypes.c_uint64, ctypes.c_char_p,
                                    ctypes.c_char_p, ctypes.c_char_p,
@@ -123,6 +123,8 @@ def lib() -> ctypes.CDLL | None:
     cdll.cp_same_msm_prove_loop.restype = ctypes.c_int32
     cdll.cp_ipa_prove_loop.restype = ctypes.c_int32
     cdll.cp_glv_decompose.restype = ctypes.c_int32
+    cdll.cp_g1_decompress_validate.restype = ctypes.c_uint32
+    cdll.cp_subgroup_check.restype = ctypes.c_uint32
     return cdll
 
 

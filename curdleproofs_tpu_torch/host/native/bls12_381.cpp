@@ -10,12 +10,18 @@
 //   scalar: 32 bytes
 //   point (Jacobian): 3 x 48 bytes (x, y, z); z == 0 encodes infinity.
 
+#include <algorithm>
+#include <atomic>
 #include <chrono>
 #include <cstdint>
 #include <cstdio>
 #include <cstdlib>
 #include <cstring>
+#include <system_error>
+#include <thread>
 #include <vector>
+
+#include <sched.h>
 
 typedef unsigned __int128 u128;
 typedef uint64_t u64;
@@ -3245,17 +3251,64 @@ bool subgroup_endo_scalar(const G1 &p) {
     return !std::memcmp(lx.l, q.x.l, 48) && !std::memcmp(ly.l, ynegq.l, 48);
 }
 
-}  // namespace
+// Runs body(lo, hi) over n points cut into contiguous pieces, on the calling
+// thread and on std::threads of its own, all joined before returning;
+// returns the number of threads the call ran on.  Each thread claims the
+// next piece from a shared counter as it finishes one, so a thread whose
+// core is busy with other work takes fewer pieces, not the whole call's
+// time.  threads = 0 takes the cores of the process's affinity mask (which
+// follows taskset, cgroup cpusets and a parent's pinning), at most one per
+// 64 points, so small calls stay on the calling thread.  A piece is about
+// an eighth of a thread's share, a multiple of SPLIT_ALIGN points (8 IFMA
+// lanes x 3 groups in flight), so only the last piece runs part-full lane
+// groups; no more threads start than there are pieces.  Threads are made
+// per call: a pool outliving the call would not survive a fork.
+constexpr uint64_t SPLIT_ALIGN = 24;
+constexpr uint64_t SPLIT_MIN_POINTS = 64;
+constexpr uint64_t SPLIT_PIECES = 8;   // pieces a thread
 
-extern "C" {
+template <class Body>
+uint32_t split_points(uint64_t n, uint64_t threads, const Body &body) {
+    uint64_t t = threads;
+    if (t == 0) {
+        t = (n + SPLIT_MIN_POINTS - 1) / SPLIT_MIN_POINTS;
+        if (t > 1) {   // small calls skip the system call
+            cpu_set_t set;
+            CPU_ZERO(&set);
+            const uint64_t cores =
+                sched_getaffinity(0, sizeof set, &set) == 0 ? CPU_COUNT(&set)
+                                                            : 1;
+            t = std::min(t, cores);
+        }
+    }
+    t = std::max<uint64_t>(t, 1);
+    const uint64_t share = (n + t * SPLIT_PIECES - 1) / (t * SPLIT_PIECES);
+    const uint64_t piece =
+        std::max<uint64_t>((share + SPLIT_ALIGN - 1) / SPLIT_ALIGN, 1) *
+        SPLIT_ALIGN;
+    t = std::max<uint64_t>(std::min(t, (n + piece - 1) / piece), 1);
+    std::atomic<uint64_t> next{0};
+    auto run = [&] {
+        for (uint64_t lo; (lo = next.fetch_add(piece)) < n;)
+            body(lo, std::min(n, lo + piece));
+    };
+    std::vector<std::thread> workers;
+    for (uint64_t i = 1; i < t; ++i) {
+        try {
+            workers.emplace_back(run);
+        } catch (const std::system_error &) {   // no thread: the rest share
+            break;
+        }
+    }
+    run();
+    for (auto &w : workers) w.join();
+    return (uint32_t)(1 + workers.size());
+}
 
-// comp: n x 48-byte compressed points. out: n x 144-byte Jacobian canonical.
-// flags[i]: 0 = valid, 1 = malformed encoding, 2 = x not on curve,
-// 3 = not in the prime-order subgroup. Infinity decodes valid with z = 0.
-// check_subgroup = 0 skips the (deferrable) subgroup test — callers batch it
-// separately via cp_subgroup_check so 8-wide lanes stay full.
-void cp_g1_decompress_validate(const uint8_t *comp, uint64_t n, uint8_t *out,
-                               uint8_t *flags, uint64_t check_subgroup) {
+// cp_g1_decompress_validate's work over one piece of points.
+void decompress_validate_range(const uint8_t *comp, uint64_t n, uint8_t *out,
+                               uint8_t *flags, bool check_subgroup,
+                               bool use_ifma) {
     // parse + x^3 + 4 (Montgomery domain)
     std::vector<Fq> xs(n), ts(n);          // x, x^3+4
     std::vector<uint8_t> inf(n, 0), sort_flag(n, 0);
@@ -3290,11 +3343,6 @@ void cp_g1_decompress_validate(const uint8_t *comp, uint64_t n, uint8_t *out,
         fq_mul(x2, x, x3);
         fq_add(x3, four, ts[i]);
     }
-#if CP_HAVE_IFMA
-    const bool use_ifma = !std::getenv("CP_NO_IFMA");
-#else
-    const bool use_ifma = false;
-#endif
     std::vector<Fq> ys(n);
     std::vector<uint8_t> on_curve(n, 0);
 #if CP_HAVE_IFMA
@@ -3418,14 +3466,14 @@ void cp_g1_decompress_validate(const uint8_t *comp, uint64_t n, uint8_t *out,
         if (on_curve[i] && flags[i] == 0) store_g1(pts[i], out + 144 * i);
 }
 
-// points: n x 144-byte Jacobian canonical. flags[i]: 0 = in the prime-order
-// subgroup (infinity counts as in), 1 = not.
-void cp_subgroup_check(const uint8_t *points, uint64_t n, uint8_t *flags) {
+// cp_subgroup_check's work over one piece of points.
+void subgroup_check_range(const uint8_t *points, uint64_t n, uint8_t *flags,
+                          bool use_ifma) {
     std::vector<G1> pts(n);
     for (uint64_t i = 0; i < n; ++i) load_g1(points + 144 * i, pts[i]);
     batch_normalize(pts.data(), n);
 #if CP_HAVE_IFMA
-    if (!std::getenv("CP_NO_IFMA")) {
+    if (use_ifma) {
         std::vector<Fq> bx(n), by(n);
         std::vector<uint8_t> live(n);
         for (uint64_t i = 0; i < n; ++i) {
@@ -3441,6 +3489,49 @@ void cp_subgroup_check(const uint8_t *points, uint64_t n, uint8_t *flags) {
 #endif
     for (uint64_t i = 0; i < n; ++i)
         flags[i] = subgroup_endo_scalar(pts[i]) ? 0 : 1;
+}
+
+bool ifma_enabled() {
+#if CP_HAVE_IFMA
+    return !std::getenv("CP_NO_IFMA");
+#else
+    return false;
+#endif
+}
+
+}  // namespace
+
+extern "C" {
+
+// comp: n x 48-byte compressed points. out: n x 144-byte Jacobian canonical.
+// flags[i]: 0 = valid, 1 = malformed encoding, 2 = x not on curve,
+// 3 = not in the prime-order subgroup. Infinity decodes valid with z = 0.
+// check_subgroup = 0 skips the (deferrable) subgroup test — callers batch it
+// separately via cp_subgroup_check so 8-wide lanes stay full.  The points
+// are split across threads (`split_points`); every piece runs the same
+// per-point code, so flags and out are the same at any thread count.
+// threads = 0, which every caller in the package passes, takes the count
+// from the process's cores; a count > 0 fixes it, for the tests.  Returns
+// the number of threads used.
+uint32_t cp_g1_decompress_validate(const uint8_t *comp, uint64_t n,
+                                   uint8_t *out, uint8_t *flags,
+                                   uint64_t check_subgroup, uint64_t threads) {
+    const bool use_ifma = ifma_enabled();
+    return split_points(n, threads, [&](uint64_t lo, uint64_t hi) {
+        decompress_validate_range(comp + 48 * lo, hi - lo, out + 144 * lo,
+                                  flags + lo, check_subgroup != 0, use_ifma);
+    });
+}
+
+// points: n x 144-byte Jacobian canonical. flags[i]: 0 = in the prime-order
+// subgroup (infinity counts as in), 1 = not.  Split across threads as
+// cp_g1_decompress_validate; returns the number of threads used.
+uint32_t cp_subgroup_check(const uint8_t *points, uint64_t n, uint8_t *flags,
+                           uint64_t threads) {
+    const bool use_ifma = ifma_enabled();
+    return split_points(n, threads, [&](uint64_t lo, uint64_t hi) {
+        subgroup_check_range(points + 144 * lo, hi - lo, flags + lo, use_ifma);
+    });
 }
 
 }  // extern "C"

@@ -103,7 +103,7 @@ def build(force: bool = False) -> pathlib.Path | None:
         # truncate the file under any RUNNING process that has it mapped
         tmp = _SO.with_suffix(f".so.{os.getpid()}.tmp")
         cmd = ["g++", "-O3", "-march=native", "-funroll-loops", "-shared",
-               "-fPIC", "-I", str(BUILD_DIR), "-o", str(tmp),
+               "-fPIC", "-pthread", "-I", str(BUILD_DIR), "-o", str(tmp),
                str(_DIR / "bls12_381.cpp")]
         try:
             subprocess.run(cmd, check=True, capture_output=True, text=True)

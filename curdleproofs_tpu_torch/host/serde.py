@@ -22,7 +22,12 @@ __all__ = [
 
 
 class SerializationError(ValueError):
-    pass
+    """A byte encoding the protocol rejects.  `index` is the position of
+    the failing point among a `g1_from_bytes_batch` call's, else None."""
+
+    def __init__(self, msg: str, index: int | None = None):
+        super().__init__(msg)
+        self.index = index
 
 
 _COMPRESSED_FLAG = 0x80
@@ -110,6 +115,13 @@ class deferred_subgroup_checks:
         return False
 
 
+def _count_parallel(threads: int, n: int) -> None:
+    """Count the `n` points of a native validation call that ran on more
+    than one thread (the call returns the threads it used)."""
+    if threads > 1:
+        count("g1.validate_parallel_points", n)
+
+
 def _check_subgroup(entries) -> None:
     """Subgroup-check the deferred (bytes, point) pairs in one batched
     native ladder (the Python check without it); cache the points."""
@@ -122,8 +134,9 @@ def _check_subgroup(entries) -> None:
         lib = native.lib()
         if lib is not None and hasattr(lib, "cp_subgroup_check"):
             flags = ctypes.create_string_buffer(len(pts))
-            lib.cp_subgroup_check(native.pts_to_bytes(pts), len(pts),
-                                  flags)
+            _count_parallel(
+                lib.cp_subgroup_check(native.pts_to_bytes(pts), len(pts),
+                                      flags, 0), len(pts))
             if any(flags.raw):
                 raise SerializationError(
                     "point not in the prime-order subgroup")
@@ -220,7 +233,7 @@ def _native_decompress_nosub(buf: bytes) -> G1 | None:
             return None
         out = ctypes.create_string_buffer(144)
         flags = ctypes.create_string_buffer(1)
-        lib.cp_g1_decompress_validate(buf, 1, out, flags, 0)
+        lib.cp_g1_decompress_validate(buf, 1, out, flags, 0, 0)
     except SerializationError:
         raise
     except Exception:
@@ -234,11 +247,21 @@ def g1_from_bytes_batch(bufs: list[bytes], validate: bool = True) -> list[G1]:
     """Decompress many 48-byte points; native batch path (IFMA sqrt + 8-wide
     subgroup ladder, ~11x the per-point python path) when available.
 
+    The native call splits the points across the process's cores (its
+    affinity mask), at most one thread per 64 points, each thread running
+    the same per-point checks on the contiguous pieces it claims; the counter
+    `g1.validate_parallel_points` counts the points of calls that ran on
+    more than one thread.  Within the call, points with the same bytes are
+    decompressed once while the decompress cache is on.
+
     Inside a `deferred_subgroup_checks` context the subgroup test is queued
     (one big batched ladder at context exit) so decompress costs only the
-    parse + sqrt."""
+    parse + sqrt.  A bad point, a wrong length included, raises
+    `SerializationError` for the lowest index that fails, with that index as
+    its `index`."""
+    cache = _cache_enabled()
     hits = ([_CACHE.get(b) for b in bufs]
-            if _CACHE and _cache_enabled() else [None] * len(bufs))
+            if _CACHE and cache else [None] * len(bufs))
     miss_idx = [i for i, h in enumerate(hits) if h is None]
     if len(miss_idx) < len(bufs):
         count("g1.decompress_cache_hits", len(bufs) - len(miss_idx))
@@ -252,37 +275,55 @@ def g1_from_bytes_batch(bufs: list[bytes], validate: bool = True) -> list[G1]:
 
             lib = native.lib()
             if lib is not None and hasattr(lib, "cp_g1_decompress_validate"):
-                miss_bufs = [bufs[i] for i in miss_idx]
-                n = len(miss_bufs)
-                for b in miss_bufs:
-                    if len(b) != 48:
-                        raise SerializationError(
-                            "G1 compressed encoding must be 48 bytes")
+                if cache:   # first occurrence of each encoding
+                    first = {}
+                    for i in miss_idx:
+                        first.setdefault(bufs[i], i)
+                    todo = list(first.values())
+                else:
+                    todo = miss_idx
+                miss_bufs = [bufs[i] for i in todo]
+                # the points before the first wrong length are read; one of
+                # them failing fails first
+                n = next((j for j, b in enumerate(miss_bufs) if len(b) != 48),
+                         len(miss_bufs))
+                del miss_bufs[n:]
                 defer = _DEFERRED is not None
                 out = ctypes.create_string_buffer(144 * n)
                 flags = ctypes.create_string_buffer(n)
-                lib.cp_g1_decompress_validate(b"".join(miss_bufs), n, out,
-                                              flags, 0 if defer else 1)
+                _count_parallel(
+                    lib.cp_g1_decompress_validate(
+                        b"".join(miss_bufs), n, out, flags,
+                        0 if defer else 1, 0), n)
                 for j, f in enumerate(flags.raw):
                     if f:
                         raise SerializationError(
-                            f"point {miss_idx[j]}: "
-                            + _DECOMPRESS_FLAG_ERRORS[f])
+                            f"point {todo[j]}: " + _DECOMPRESS_FLAG_ERRORS[f],
+                            todo[j])
+                if n < len(todo):
+                    raise SerializationError(
+                        f"point {todo[n]}: G1 compressed encoding must be "
+                        "48 bytes", todo[n])
                 pts = native.pts_from_bytes(out.raw, n)
                 if defer:
                     _DEFERRED.extend(zip(miss_bufs, pts))
-                elif _cache_enabled():
+                elif cache:
                     for b, p in zip(miss_bufs, pts):
                         _cache_put(b, p)
+                got = dict(zip(miss_bufs, pts)) if cache else None
                 for j, i in enumerate(miss_idx):
-                    hits[i] = pts[j]
+                    hits[i] = got[bufs[i]] if cache else pts[j]
                 return hits
         except SerializationError:
             raise
         except Exception:
             pass
     for i in miss_idx:
-        hits[i] = g1_from_bytes(bufs[i], validate=validate)
+        try:
+            hits[i] = g1_from_bytes(bufs[i], validate=validate)
+        except SerializationError as e:
+            e.index = i
+            raise
     return hits
 
 

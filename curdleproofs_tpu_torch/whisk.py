@@ -6,6 +6,8 @@ Schnorr-style DLEQ tracker opening proofs.
 
 from __future__ import annotations
 
+import bisect
+
 from .constants import (
     FIELD_ELEMENT_SIZE, G1POINT_SIZE, R, TRACKER_PROOF_SIZE, WHISK_ELL,
     WHISK_SHUFFLE_PROOF_SIZE,
@@ -17,8 +19,8 @@ from .host.g1 import G1, GENERATOR
 from .host.rng import StdRng
 from .msm_accumulator import MsmAccumulator
 from .host.serde import (
-    fr_from_bytes, fr_from_le_bytes_mod_order, fr_to_bytes, g1_from_bytes,
-    g1_from_bytes_batch, deferred_subgroup_checks,
+    SerializationError, fr_from_bytes, fr_from_le_bytes_mod_order,
+    fr_to_bytes, g1_from_bytes, g1_from_bytes_batch, deferred_subgroup_checks,
     g1_to_bytes,
 )
 from .transcript import Transcript
@@ -167,12 +169,39 @@ class WhiskShuffleProof:
         return WhiskShuffleProof(M, proof)
 
 
-def _unzip_trackers(trackers) -> tuple[list[G1], list[G1]]:
-    n = len(trackers)
-    with span("whisk.unzip_trackers", timeline=False, points=2 * n):
-        both = g1_from_bytes_batch([t.r_G for t in trackers]
-                                   + [t.k_r_G for t in trackers])
-    return both[:n], both[n:]
+def _unzip_trackers(*tracker_lists, where=None) -> list[list[G1]]:
+    """Decompress tracker lists in one call: each list's r_G points, then
+    its k_r_G points, list after list.  Returns each list's r_G and k_r_G
+    vectors in that order: `vec_r, vec_s = _unzip_trackers(trackers)`.
+
+    A bad point raises the `SerializationError` that one call a list, in
+    this order, would raise first, after `where(k)`, the name of its list
+    k, where the caller passes one."""
+    bufs, starts = [], []
+    for trackers in tracker_lists:
+        starts.append(len(bufs))
+        bufs += [t.r_G for t in trackers]
+        bufs += [t.k_r_G for t in trackers]
+    with span("whisk.unzip_trackers", timeline=False, points=len(bufs)):
+        try:
+            pts = g1_from_bytes_batch(bufs)
+        except SerializationError as e:
+            if where is None:
+                raise
+            # the lowest failing point's list is the first list that fails;
+            # alone, it raises what its own call raised
+            k = bisect.bisect_right(starts, e.index) - 1
+            n = len(tracker_lists[k])
+            try:
+                g1_from_bytes_batch(bufs[starts[k]:starts[k] + 2 * n])
+            except SerializationError as first:
+                raise SerializationError(f"{where(k)}: {first}") from None
+            raise
+    out = []
+    for trackers, at in zip(tracker_lists, starts):
+        n = len(trackers)
+        out += [pts[at:at + n], pts[at + n:at + 2 * n]]
+    return out
 
 
 def _zip_trackers(vec_r: list[G1], vec_s: list[G1]) -> list[WhiskTracker]:
@@ -239,17 +268,21 @@ def is_valid_whisk_shuffle_proofs(
     """
     from .parallel.batch_verify import ShuffleInstance, batch_verify
 
-    # tracker unzips stay OUTSIDE the deferred context: the eager path fuses
-    # the subgroup ladder into the decompress call on already-loaded affine
-    # coordinates, which beats deferring (defer = re-serialize + re-load the
-    # points for a separate ladder).  Deferral only wins for the proofs'
-    # scattered small point groups, where ONE context spans the segment.
+    # The tracker unzip stays OUTSIDE the deferred context: the eager path
+    # fuses the subgroup ladder into the decompress call on already-loaded
+    # affine coordinates, which beats deferring (defer = re-serialize +
+    # re-load the points for a separate ladder).  It is one native call for
+    # every block's pre- and post-trackers, split across the process's
+    # cores.  Deferral only wins for the proofs' scattered small point
+    # groups, where ONE context spans the segment.
     with span("whisk.verify_batch", blocks=len(shuffles)):
-        instances, proofs = [], []
-        for pre, post, _ in shuffles:
-            vec_r, vec_s = _unzip_trackers(pre)
-            vec_t, vec_u = _unzip_trackers(post)
-            instances.append(ShuffleInstance(vec_r, vec_s, vec_t, vec_u, None))
+        vecs = _unzip_trackers(
+            *(lst for pre, post, _ in shuffles for lst in (pre, post)),
+            where=lambda k: f"block {k // 2} {('pre', 'post')[k % 2]}"
+                            "_trackers")
+        instances = [ShuffleInstance(*vecs[4 * b:4 * b + 4], None)
+                     for b in range(len(shuffles))]
+        proofs = []
         with span("whisk.proof_bytes"), deferred_subgroup_checks():
             # ONE ladder for ~90 x B proof points
             for inst, (_, _, proof_bytes) in zip(instances, shuffles):

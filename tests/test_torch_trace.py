@@ -10,8 +10,8 @@ spans and counters the program puts where its work happens, on the CPU.
   `CURDLEPROOFS_TRACE=1` (one, with the spans' attribute totals and the
   counters, and no line a span);
 - the program: a small `is_valid_whisk_shuffle_proofs` batch on
-  `TorchBackend(device="cpu")` records two `whisk.unzip_trackers` spans a
-  block, 4 x ell x blocks points decompressed, no decompress-cache
+  `TorchBackend(device="cpu")` records one `whisk.unzip_trackers` span a
+  batch, 4 x ell x blocks points decompressed, no decompress-cache
   hit with the cache off, and the MSM pipeline's spans under its final
   check; a `batch_prove` wave's `dispatch.*` spans sum to its
   `last_timings`' stages, whose keys and identity stay as they were.
@@ -294,7 +294,7 @@ def test_sync_verification_spans_and_counters(blocks, monkeypatch):
     names = _by_name(recs)
     (root,) = names["whisk.verify_batch"]
     assert root.parent is None and all(r.call == root.id for r in recs)
-    assert len(names["whisk.unzip_trackers"]) == 2 * BLOCKS
+    assert len(names["whisk.unzip_trackers"]) == 1
     assert sum(r.attrs["points"] for r in names["whisk.unzip_trackers"]) \
         == 4 * ELL * BLOCKS
     totals = trace.attr_totals(recs)
